@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of its own:
+Phases, each printing lines of its own:
 
 1. build   — compile the CUDA kernels from seed_tpu_torch/csrc/ (one nvcc per
              source, all at once) into build/seed_tpu_torch/.
-2. kernels — hold each kernel against its plain PyTorch version on the card at
-             the main path's shapes, and time kernel, plain version, the
-             library yardstick and the bound.
+2. kernels — hold each of the five kernels (short_mha, int8_matmul, and the
+             tiled flash forward, dq and dk/dv) against its plain PyTorch
+             version on the card at the main paths' shapes, and time kernel,
+             plain version, the library yardstick and the bound.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -16,22 +17,32 @@ Phases, each printing one line of its own:
 5. serve   — SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by
              layer: batched LlamaEngine.generate and SeedLlamaInterface
              requests, greedy and sampled.
+6. train   — SEED-LLaMA-8B (32 layers, bf16, seeded weights) + LoRA r=16
+             through Trainer: grad_accum 2 x micro-batch 4 x 1024 tokens,
+             per-layer recompute, causal attention of every layer through the
+             flash forward, dq and dk/dv kernels; AdamW, cosine schedule with
+             warm-up; four steps, a saved state, and a fifth step from a
+             fresh trainer that restored it.
 
-Phases 4 and 5 are the main path: the launch counters are set to 0 just
-before phase 4 and read just after phase 5. Every failure raises, so the
-script exits non-zero and prints no result line. The last line is the device
-record; the line before it lists the kernels, the one before that the card.
+Phases 4-5 (serving) and phase 6 (training) are the main paths: the launch
+counters of a path's kernels are set to 0 just before it and read just after.
+Every failure raises, so the script exits non-zero and prints no result line.
+The last line is the device record; the line before it lists the kernels, the
+one before that the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
@@ -203,6 +214,146 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
                                  bound_by=by, max_abs_err=worst)
     emit("kernels", kernel="int8_matmul", summary="mean per launch over one "
          "8B prefill (225 launches)", card=name, **record["int8_matmul"])
+    return record
+
+
+# ------------------------------------------------- phase 2, kernel rows 3-5
+
+# Tolerances of the flash kernels against their plain versions (same tiles,
+# same rounding points). Forward: fp32 differs by the order of fp32 sums
+# (2e-5); bf16 by an output rounding that lands one ulp apart at |o| < 4
+# (2**-6); lse is fp32 either way (2e-5). Backward: sums of up to S products
+# of O(1) terms; fp32 1e-4 absolute; bf16 roundings of p and ds one ulp
+# apart, 2**-5 of the largest gradient.
+FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+FLASH_LSE_TOL = 2e-5
+FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2.0 ** -5)}
+# (B, Sq, Sk, H, D, causal, q_offset, timed): the training shape; a ragged
+# causal one; the non-causal ViT shape (kv masking); a chunk at an offset
+# (forward only: its gradient takes the mha recompute)
+FLASH_CASES = [(4, 1024, 1024, 32, 128, True, 0, True),
+               (2, 300, 300, 4, 64, True, 0, False),
+               (2, 257, 257, 4, 88, False, 0, False),
+               (2, 256, 512, 4, 128, True, 256, False)]
+
+
+def _pairs(Sq, Sk, causal, q_offset):
+    """(row, column) pairs the attention covers."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, max(0, r + q_offset + 1)) for r in range(Sq))
+
+
+def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
+    """Kernel rows 3-5 against their plain versions; times at the training
+    shape in bf16 (the record) and fp32."""
+    import torch.nn.functional as F
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops.attention import mha, sliced_causal_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    record = {}
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for B, Sq, Sk, H, D, causal, off, timed in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            mk = lambda S: torch.randn(B, S, H, D, generator=gen,
+                                       device="cuda").to(dtype)
+            q, k, v, dout = mk(Sq), mk(Sk), mk(Sk), mk(Sq)
+            scale = D ** -0.5
+            label = dict(B=B, Sq=Sq, Sk=Sk, H=H, D=D, causal=causal,
+                         q_offset=off, dtype=str(dtype).split(".")[-1])
+            out, lse = TF.flash_fwd(q, k, v, causal, scale, off)
+            want, want_lse = TF.flash_fwd_plain(q, k, v, causal, scale, off)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            if not (err <= FLASH_FWD_TOL[dtype] and lse_err <= FLASH_LSE_TOL):
+                raise AssertionError(f"flash_fwd {label}: max_abs_err {err}, "
+                                     f"lse {lse_err}")
+            worst["flash_fwd"] = max(worst["flash_fwd"], err)
+            errs = {"flash_fwd": err, "lse": lse_err}
+            if off == 0:
+                delta = (dout.float() * want.float()).sum(-1)
+                delta = delta.permute(0, 2, 1).contiguous()
+                args = (q, k, v, dout, want_lse, delta, causal, scale)
+                dq = TF.flash_bwd_dq(*args)
+                dk, dv = TF.flash_bwd_dkv(*args)
+                want_dq = TF.flash_bwd_dq_plain(*args)
+                want_dk, want_dv = TF.flash_bwd_dkv_plain(*args)
+                torch.cuda.synchronize()
+                atol, rtol = FLASH_BWD_TOL[dtype]
+                for kern, got, ref in (("flash_bwd_dq", dq, want_dq),
+                                       ("flash_bwd_dkv", dk, want_dk),
+                                       ("flash_bwd_dkv", dv, want_dv)):
+                    e = (got.float() - ref.float()).abs().max().item()
+                    if not e <= atol + rtol * ref.float().abs().max().item():
+                        raise AssertionError(f"{kern} {label}: max_abs_err {e}")
+                    worst[kern] = max(worst[kern], e)
+                    errs[kern] = max(errs.get(kern, 0.0), e)
+            if not timed:
+                emit("kernels", kernel="flash", **label, max_abs_err=errs,
+                     card=name)
+                continue
+
+            # times at the training shape. Operations: 2*D per (row, column)
+            # pair and matrix product: 2 products forward (QK^T, PV), 3 in dq
+            # (QK^T, dO V^T, dS K), 4 in dk/dv (QK^T, dO V^T, P^T dO, dS^T Q).
+            # Bytes: every input read once, every output written once.
+            iters = 10 if dtype == torch.bfloat16 else 3
+            pairs = B * H * _pairs(Sq, Sk, causal, off)
+            tensor = B * Sq * H * D * dtype.itemsize
+            rowvec = B * H * Sq * 4
+            work = {"flash_fwd": (2 * 2 * D * pairs, 4 * tensor + rowvec),
+                    "flash_bwd_dq": (3 * 2 * D * pairs, 5 * tensor + 2 * rowvec),
+                    "flash_bwd_dkv": (4 * 2 * D * pairs, 6 * tensor + 2 * rowvec)}
+            qt, kt, vt, gt = (t.transpose(1, 2).contiguous().requires_grad_()
+                              for t in (q, k, v, dout))
+            sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters, flush)
+            # one autograd call computes dq, dk and dv together
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), gt, retain_graph=True), iters, flush)
+            runs = {
+                "flash_fwd": (lambda: TF.flash_fwd(q, k, v, causal, scale),
+                              lambda: TF.flash_fwd_plain(q, k, v, causal, scale),
+                              lib_fwd),
+                "flash_bwd_dq": (lambda: TF.flash_bwd_dq(*args),
+                                 lambda: TF.flash_bwd_dq_plain(*args), lib_bwd),
+                "flash_bwd_dkv": (lambda: TF.flash_bwd_dkv(*args),
+                                  lambda: TF.flash_bwd_dkv_plain(*args), lib_bwd),
+            }
+            for kern, (fn, plain_fn, lib) in runs.items():
+                flops, nbytes = work[kern]
+                bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
+                timing = dict(ms=time_ms(fn, iters, flush),
+                              plain_ms=time_ms(plain_fn, 2, flush),
+                              library_ms=lib, bound_ms=bms, bound_by=by)
+                if dtype == torch.bfloat16:
+                    record[kern] = dict(timing)
+                emit("kernels", kernel=kern, **label, max_abs_err=errs[kern],
+                     flops=flops, bytes=nbytes, card=name,
+                     library="scaled_dot_product_attention(is_causal=True)"
+                     + ("" if kern == "flash_fwd" else
+                        " backward, dq+dk+dv in one call"), **timing)
+            del qt, kt, vt, gt, sdpa
+
+    # GQA through the dispatcher (8 query heads over 2 kv heads, repeated
+    # outside the kernel) against the plain mha path, fp32: 2e-4, the bound
+    # of seed_tpu's own flash tests
+    q = torch.randn(2, 512, 8, 128, generator=gen, device="cuda")
+    k = torch.randn(2, 512, 2, 128, generator=gen, device="cuda")
+    v = torch.randn(2, 512, 2, 128, generator=gen, device="cuda")
+    got = TF.flash_attention(q, k, v, causal=True)
+    want = mha(q, k, v, mask=sliced_causal_mask(512, 512, 0, "cuda"))
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not err <= 2e-4:
+        raise AssertionError(f"flash_attention GQA: max_abs_err {err}")
+    emit("kernels", kernel="flash_fwd", what="GQA 8/2 heads through "
+         "flash_attention vs mha, fp32", max_abs_err=err, tol=2e-4, card=name)
+    for kern in record:
+        record[kern]["max_abs_err"] = worst[kern]
     return record
 
 
@@ -422,6 +573,176 @@ def phase_serve(name: str, tok_params, codes: torch.Tensor) -> None:
          int8_matmul_launches_per_prefill=per_prefill, card=name)
 
 
+# --------------------------------------------------------------- phase 6
+
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_ACCUM = 4, 1024, 2
+# bf16 activations through 32 layers, attention probabilities rounded at
+# other points (tiled online softmax against one whole-row softmax): the two
+# losses (about ln 40194 = 10.6 at random init) agree to 0.02
+TRAIN_LOSS_TOL = 0.02
+
+
+def _train_batches(n: int, vocab: int, seed: int):
+    """Seeded batches in the data collate's layout, [grad_accum, micro, S]:
+    right-padded, attention_mask 1 on real tokens, labels -100 on padding."""
+    rs = np.random.RandomState(seed)
+    shape = (TRAIN_ACCUM, TRAIN_MICRO, TRAIN_SEQ)
+    for _ in range(n):
+        ids = rs.randint(3, vocab, shape).astype(np.int32)
+        lengths = rs.randint(TRAIN_SEQ // 2, TRAIN_SEQ + 1, shape[:2])
+        mask = (np.arange(TRAIN_SEQ) < lengths[..., None]).astype(np.int32)
+        yield {"input_ids": ids * mask, "attention_mask": mask,
+               "labels": np.where(mask == 1, ids, -100).astype(np.int32)}
+
+
+def _fingerprint(tree) -> list:
+    """Exact integer checksum of every leaf's bits."""
+    from seed_tpu_torch.utils.tree import leaves
+    return [int(t.view(torch.int16).to(torch.int64).sum()) for t in leaves(tree)]
+
+
+def llm_loss(base, cfg, use_flash: bool):
+    """The LoRA training loss: adapters merged into the frozen ``base``,
+    forward with per-layer recompute, next-token cross entropy."""
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.train import apply_lora, cross_entropy
+
+    def loss_fn(lora, batch, rng):
+        logits = M.forward(apply_lora(base, lora), batch["input_ids"], cfg,
+                           attn_mask=batch["attention_mask"], remat=True,
+                           use_flash=use_flash)
+        return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return loss_fn
+
+
+def llm_trainer(base, cfg, lora):
+    """Trainer over the adapter tree; the loss closes over the frozen base.
+    AdamW of the LLM recipe, cosine schedule with one warm-up step."""
+    from seed_tpu_torch.train import (Trainer, TrainerConfig, adamw,
+                                      cosine_with_floor)
+    opt = adamw(cosine_with_floor(1.5e-4, 1, 8, 0.05), b1=0.9, b2=0.95,
+                eps=1e-5, weight_decay=0.05, clip_norm=1.0, params=lora)
+    return Trainer(llm_loss(base, cfg, True), lora, opt,
+                   TrainerConfig(grad_accum=TRAIN_ACCUM))
+
+
+def phase_train(name: str) -> dict:
+    """LoRA fine-tuning of SEED-LLaMA-8B through Trainer; returns the flash
+    kernels' launch counts over the counted steps."""
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.train import init_lora
+    from seed_tpu_torch.utils import CheckpointManager
+    from seed_tpu_torch.utils.tree import leaves_with_path
+    cfg = M.SEED_LLAMA_8B
+    t0 = time.perf_counter()
+    base = M.init_llama(torch.Generator(device="cuda").manual_seed(SEED + 3),
+                        cfg, torch.bfloat16)
+    make_lora = lambda: init_lora(
+        torch.Generator(device="cuda").manual_seed(SEED + 4), base, r=16, alpha=32)
+    lora0 = make_lora()
+    torch.cuda.synchronize()
+    n_adapter = sum(t.numel() for _, t in leaves_with_path(lora0))
+    emit("train", what="init SEED_LLAMA_8B bf16 + LoRA r=16 alpha=32",
+         seconds=time.perf_counter() - t0, layers=cfg.layers,
+         adapter_params=n_adapter,
+         gib_allocated=torch.cuda.memory_allocated() / 2 ** 30, card=name)
+    before = _fingerprint(base)
+    loss_with = lambda use_flash: llm_loss(base, cfg, use_flash)
+    trainer = lambda: llm_trainer(base, cfg, make_lora())
+
+    data = list(_train_batches(5, cfg.vocab_size, SEED + 5))
+
+    # the first micro-batch's loss through the kernels against the same loss
+    # through the plain mha path (not counted as the main path)
+    micro = {k: torch.as_tensor(v[0]).cuda() for k, v in data[0].items()}
+    with torch.no_grad():
+        loss_kernel = loss_with(True)(lora0, micro, None).item()
+        loss_plain = loss_with(False)(lora0, micro, None).item()
+    if not (math.isfinite(loss_kernel)
+            and abs(loss_kernel - loss_plain) <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"train: loss through the flash kernels "
+                             f"{loss_kernel} vs plain mha {loss_plain}")
+    emit("train", what="first micro-batch, flash kernels vs plain mha",
+         loss_kernels=loss_kernel, loss_plain=loss_plain, tol=TRAIN_LOSS_TOL,
+         card=name)
+
+    counters = (TF.flash_fwd, TF.flash_bwd_dq, TF.flash_bwd_dkv)
+    per_step = [2 * cfg.layers * TRAIN_ACCUM, cfg.layers * TRAIN_ACCUM,
+                cfg.layers * TRAIN_ACCUM]
+    for fn in counters:                 # the main path: counted from here
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps_done, step_ms = 0, []
+
+    def run_step(tr, batch):
+        nonlocal steps_done
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = tr.train(iter([batch]), 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps_done += 1
+        got = [fn.launches for fn in counters]
+        if got != [n * steps_done for n in per_step]:
+            raise AssertionError(f"train step {steps_done}: launches {got}, "
+                                 f"expected {per_step} per step")
+        loss, gnorm = metrics["loss"], metrics["grad_norm"]
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"train step {steps_done}: loss {loss}, "
+                                 f"grad_norm {gnorm}")
+        emit("train", step=tr.state.step, loss=loss, grad_norm=gnorm, ms=ms,
+             launches=got, card=name)
+        return loss, ms
+
+    first = trainer()
+    for i in range(3):
+        _, ms = run_step(first, data[i])
+        if i == 0:      # lr(0) = 0 under the warm-up: nothing moves
+            for (path, a), (_, b) in zip(leaves_with_path(first.state.params),
+                                         leaves_with_path(lora0)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"train: step 0 moved {path}")
+        else:
+            step_ms.append(ms)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        mgr = CheckpointManager(tmp, max_to_keep=1)
+        first.save_state(mgr)
+        loss_continued, ms = run_step(first, data[3])
+        step_ms.append(ms)
+        second = trainer()
+        if second.restore_state(mgr) != 3:
+            raise AssertionError("train: restore_state did not find step 3")
+    loss_resumed, ms = run_step(second, data[3])
+    step_ms.append(ms)
+    # the restored state is bit-identical and no kernel on the path uses
+    # atomics; 1e-5 relative leaves room for a library matmul that splits K
+    if not abs(loss_resumed - loss_continued) <= 1e-5 * abs(loss_continued):
+        raise AssertionError(f"train: resumed loss {loss_resumed} vs "
+                             f"continued {loss_continued}")
+
+    if _fingerprint(base) != before:
+        raise AssertionError("train: the frozen base changed")
+    for path, t in leaves_with_path(first.state.params["adapters"]):
+        if not t.isfinite().all() or (path.endswith("/b") and not t.any()):
+            raise AssertionError(f"train: adapter {path} is zero or not finite")
+    tokens = TRAIN_ACCUM * TRAIN_MICRO * TRAIN_SEQ
+    median = statistics.median(step_ms)
+    emit("train", what="SEED_LLAMA_8B + LoRA, grad_accum 2 x micro 4 x 1024, "
+         "remat, flash kernels", optimizer_steps=steps_done,
+         step_ms_median=median, step_ms_min=min(step_ms),
+         step_ms_max=max(step_ms), step_ms_runs=step_ms,
+         tokens_per_step=tokens, tokens_per_s=tokens / median * 1e3,
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         loss_continued=loss_continued, loss_resumed=loss_resumed,
+         resumed_bit_equal=loss_resumed == loss_continued,
+         launches_per_step=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"), per_step)), card=name)
+    return {fn.__name__: fn.launches for fn in counters}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -438,6 +759,7 @@ def main() -> None:
     phase_build(name)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     record = phase_kernels(name, flush)
+    record.update(phase_flash_kernels(name, flush))
     del flush
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -448,27 +770,37 @@ def main() -> None:
     tok_params = _cast(params32, torch.bfloat16)
     del params32
 
-    # the main path: every launch from here on is counted
+    # the serving path: every launch from here on is counted
     short_mha.launches = 0
     int8_matmul.launches = 0
     codes = phase_encode(name, tok_params, raw)
     phase_serve(name, tok_params, codes)
     launches = {"short_mha": short_mha.launches,
                 "int8_matmul": int8_matmul.launches}
+    del tok_params, codes, raw
+    torch.cuda.empty_cache()
+    # the training path: phase_train zeroes its kernels' counters itself
+    launches.update(phase_train(name))
     for kernel, n in launches.items():
         if n == 0:
-            raise AssertionError(f"{kernel} was never launched on the main path")
+            raise AssertionError(f"{kernel} was never launched on its main path")
 
-    replaces = {"short_mha": "seed_tpu/ops/flash_attention.py:170",
-                "int8_matmul": "seed_tpu/ops/int8_matmul.py:32"}
-    kernels = [dict(name=k, route="cuda", source=f"seed_tpu_torch/csrc/{k}.cu",
-                    replaces=replaces[k], launches=launches[k],
+    flash_cu = "seed_tpu_torch/csrc/flash_attention.cu"
+    sources = {"short_mha": ("seed_tpu_torch/csrc/short_mha.cu",
+                             "seed_tpu/ops/flash_attention.py:170"),
+               "int8_matmul": ("seed_tpu_torch/csrc/int8_matmul.cu",
+                               "seed_tpu/ops/int8_matmul.py:32"),
+               "flash_fwd": (flash_cu, "seed_tpu/ops/flash_attention.py:60"),
+               "flash_bwd_dq": (flash_cu, "seed_tpu/ops/flash_attention.py:335"),
+               "flash_bwd_dkv": (flash_cu, "seed_tpu/ops/flash_attention.py:378")}
+    kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
+                    launches=launches[k],
                     max_abs_err=record[k]["max_abs_err"], ms=record[k]["ms"],
                     plain_ms=record[k]["plain_ms"],
                     bound_ms=record[k]["bound_ms"],
                     bound_by=record[k]["bound_by"],
                     library_ms=record[k]["library_ms"])
-               for k in ("short_mha", "int8_matmul")]
+               for k, (source, replaces) in sources.items()]
     print(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
     python3 profile_port.py
 
-Seeded random weights at full width, as in chip_smoke.py. Three regions:
+Seeded random weights at full width, as in chip_smoke.py. Four regions:
 one SEED-tokenizer encode (exact config, B=8), one SEED-LLaMA-8B int8
-prefill (B=4 x 64 tokens, M=256) and 8 decode steps (B=4). For each region
+prefill (B=4 x 64 tokens, M=256), 8 decode steps (B=4), and one optimizer
+step of SEED-LLaMA-8B + LoRA training (bf16, grad_accum 2 x micro-batch 4 x
+1024 tokens, per-layer recompute, flash kernels). For each region
 it prints one JSON line with the host wall time (median of 5 runs, no
 profiler), the device busy time (sum of kernel times under torch.profiler),
 the device's idle share, and the kernels with the most device time.
@@ -28,7 +30,7 @@ def _device_us(evt) -> float:
     raise AttributeError("profiler event without a device time")
 
 
-def region(label: str, fn, card: str, reps: int = 5) -> None:
+def region(label: str, fn, card: str, reps: int = 5, top_n: int = 8) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -50,7 +52,7 @@ def region(label: str, fn, card: str, reps: int = 5) -> None:
     wall_ms = statistics.median(walls)
     if busy_ms <= 0:
         raise AssertionError(f"{label}: the profiler saw no device time")
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    top = sorted(kernels, key=_device_us, reverse=True)[:top_n]
     print(json.dumps({
         "region": label, "wall_ms_median": wall_ms, "wall_ms_runs": walls,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
@@ -103,6 +105,17 @@ def main() -> None:
                 t = out[:, 0].argmax(-1)[:, None]
 
         region("decode 8 steps B=4", decode8, card)
+        del params, cache, logits
+
+    # one optimizer step of LoRA training; the first call (lr(0) = 0, and the
+    # first use of every shape) is region()'s warm-up
+    from seed_tpu_torch.train import init_lora
+    torch.cuda.empty_cache()
+    base = M.init_llama(gen, lcfg, torch.bfloat16)
+    trainer = chip_smoke.llm_trainer(base, lcfg, init_lora(gen, base, r=16, alpha=32))
+    batch = next(chip_smoke._train_batches(1, lcfg.vocab_size, chip_smoke.SEED))
+    region("train step 8B LoRA, 2 x 4 x 1024 tokens",
+           lambda: trainer.train(iter([batch]), 1), card, reps=3, top_n=16)
 
 
 if __name__ == "__main__":

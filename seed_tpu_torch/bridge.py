@@ -14,6 +14,10 @@ not import JAX) and returns the port's tree of tensors:
   ``layers`` is already a list in seed_tpu and stays one;
 - bfloat16 leaves (numpy arrays of ml_dtypes' bfloat16) become
   torch.bfloat16 bit for bit.
+
+``lora_from_seed_tpu`` does the same for a LoRA adapter tree
+(seed_tpu/train/lora.py), whose adapters are keyed by the path of the kernel
+they adapt.
 """
 from __future__ import annotations
 
@@ -64,3 +68,28 @@ def from_seed_tpu(tree: Any, device="cuda") -> Any:
         return _tensor(t, device)
 
     return walk(tree)
+
+
+def lora_from_seed_tpu(lora: Any, device="cuda") -> Any:
+    """seed_tpu adapter tree (numpy leaves) -> the port's, on ``device``.
+
+    seed_tpu names an adapter after its kernel's path in the stacked tree
+    (``layers/q_proj/kernel``, A [L, in, r], B [L, r, out]); the port's
+    layers are a list, so that adapter becomes L adapters named
+    ``layers/{i}/q_proj/kernel`` with A [in, r], B [r, out]. Adapters of
+    kernels outside a stacked tree (2-D A and B) keep their names."""
+    device = resolve_device(device)
+    adapters = {}
+    for name, ad in lora["adapters"].items():
+        a, b = np.asarray(ad["a"]), np.asarray(ad["b"])
+        parts = name.split("/")
+        stacked = [i for i, part in enumerate(parts) if part in STACKED_KEYS]
+        if a.ndim == 2 or not stacked:
+            adapters[name] = {"a": _tensor(a, device), "b": _tensor(b, device)}
+            continue
+        at = stacked[0] + 1
+        for i in range(a.shape[0]):
+            layer_name = "/".join(parts[:at] + [str(i)] + parts[at:])
+            adapters[layer_name] = {"a": _tensor(a[i], device),
+                                    "b": _tensor(b[i], device)}
+    return {"adapters": adapters, "scale": _tensor(lora["scale"], device)}

@@ -19,8 +19,10 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, mha, sliced_causal_mask
+from ..ops.flash_attention import flash_attention
 from ..ops.quantization import quantize_tree
 from . import layers as L
 from .. import resolve_device
@@ -203,7 +205,10 @@ def _logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
     x = L.rms_norm(params["norm"], x, cfg.rms_eps)
     logits = L.linear(params["lm_head"], x).float()
     if cfg.padded_vocab != cfg.vocab_size:  # mask vocab padding
-        logits[..., cfg.vocab_size:] = NEG_INF
+        # out of place: for fp32 weights .float() is the matmul's own output,
+        # a tensor inside the autograd graph when training
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
     return logits
 
 
@@ -211,9 +216,19 @@ def _logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
 
 def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None,
-            attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Forward over a full sequence -> logits [B, N, V]. ``attn_mask`` [B, N]
-    (1 = real token) combines with the causal mask."""
+            attn_mask: Optional[torch.Tensor] = None,
+            remat: bool = False, use_flash: bool = False) -> torch.Tensor:
+    """Training/eval forward over a full sequence -> logits [B, N, V],
+    differentiable in every floating-point leaf of ``params``.
+
+    ``attn_mask`` [B, N] (1 = real token) combines with the causal mask.
+    ``use_flash`` routes attention through ``flash_attention(causal=True)``,
+    the tiled flash kernels and their backward kernels (right padding
+    assumed: real tokens never attend forward into padding, and padded
+    positions carry no loss; ``attn_mask`` then only matters on the loss
+    side). ``remat`` keeps only each layer's input for the backward pass and
+    recomputes the layer there (``torch.utils.checkpoint``, non-reentrant),
+    as seed_tpu's ``jax.checkpoint`` per layer does."""
     B, N = input_ids.shape
     x = L.embed(params["embed_tokens"], input_ids)
     if positions is None:
@@ -221,9 +236,16 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     mask = sliced_causal_mask(N, N, 0, input_ids.device)
     if attn_mask is not None:
         mask = mask & attn_mask[:, None, None, :].bool()
+
+    def layer(lp, xx):
+        q, k, v = _attn_qkv(lp, xx, positions, cfg)
+        o = (flash_attention(q, k, v, causal=True) if use_flash
+             else mha(q, k, v, mask=mask))
+        return _attn_out_mlp(lp, xx, o, cfg)
+
     for lp in params["layers"]:
-        q, k, v = _attn_qkv(lp, x, positions, cfg)
-        x = _attn_out_mlp(lp, x, mha(q, k, v, mask=mask), cfg)
+        x = (checkpoint(layer, lp, x, use_reentrant=False) if remat
+             else layer(lp, x))
     return _logits(params, x, cfg)
 
 

@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "seed_tpu_torch"
-SOURCES = {"short_mha": "short_mha.cu", "int8_matmul": "int8_matmul.cu"}
+SOURCES = {"short_mha": "short_mha.cu", "int8_matmul": "int8_matmul.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,20 +10,17 @@ drop into every model unchanged.
 from __future__ import annotations
 
 import re
-from typing import Any, Sequence
+from typing import Any
 
 import torch
+
+from ..utils.tree import path_str
 
 DEFAULT_TARGETS = (r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|"
                    r"down_proj|lm_head)/kernel$")
 # the four hot matmuls of every ViT block (qkv/proj/fc1/fc2); the port keeps
 # the blocks as a list, so a block's index sits between "blocks" and "attn"
 VIT_TARGETS = r"blocks/(\d+/)?(attn/(qkv|proj)|mlp/fc[12])/kernel$"
-
-
-def path_str(path: Sequence[Any]) -> str:
-    """Tree path -> 'a/b/0/c' (seed_tpu/parallel/partition.py:path_str)."""
-    return "/".join(str(p) for p in path)
 
 
 def quantize_weight(w: torch.Tensor) -> dict:

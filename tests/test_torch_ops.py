@@ -99,8 +99,9 @@ def test_short_mha_plain_reads_strided_views():
 
 def test_flash_attention_routes_like_seed_tpu():
     """Same routing as seed_tpu: S=257 non-causal -> short kernel (plain
-    version on the CPU, no launch counted); S < 256 -> mha; the tiled causal
-    kernel is not ported and raises rather than taking another path."""
+    version on the CPU, no launch counted); S < 256 -> mha; a causal S=512
+    takes the tiled flash kernels (plain versions on the CPU) and agrees with
+    seed_tpu's Pallas flash to 2e-4, the bound of seed_tpu's own tests."""
     B, H, D = 1, 2, 88
     before = TF.short_mha.launches
     for S in (257, 64):
@@ -111,9 +112,13 @@ def test_flash_attention_routes_like_seed_tpu():
                                  torch.from_numpy(v), exact=True)
         np.testing.assert_allclose(f32(got), f32(want), atol=1e-5, rtol=1e-5)
     assert TF.short_mha.launches == before
-    q = torch.zeros(1, 512, 2, 64)
-    with pytest.raises(NotImplementedError, match="row 3"):
-        TF.flash_attention(q, q, q, causal=True)
+    q, k, v = (randn((1, 512, 2, 64), s) for s in (7, 8, 9))
+    want = JF.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=True)
+    got = TF.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=True)
+    np.testing.assert_allclose(f32(got), f32(want), atol=2e-4, rtol=2e-4)
+    assert TF.flash_fwd.launches == 0
 
 
 # ------------------------------------------------ kernel 2: int8_matmul
