@@ -4,12 +4,12 @@
 
 Phases, each printing lines of its own:
 
-1. build   — compile the CUDA kernels from seed_tpu_torch/csrc/ (one nvcc per
-             source, all at once) into build/seed_tpu_torch/.
-2. kernels — hold each of the five kernels (short_mha, int8_matmul, and the
-             tiled flash forward, dq and dk/dv) against its plain PyTorch
-             version on the card at the main paths' shapes, and time kernel,
-             plain version, the library yardstick and the bound.
+1. build   — compile the four CUDA sources of seed_tpu_torch/csrc/ (one nvcc
+             per source, all at once) into build/seed_tpu_torch/.
+2. kernels — hold each of the six kernels (short_mha, int8_matmul, the tiled
+             flash forward, dq and dk/dv, and w8a8_matmul) against its plain
+             PyTorch version on the card at the main paths' shapes, and time
+             kernel, plain version, the library yardstick and the bound.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -17,29 +17,41 @@ Phases, each printing lines of its own:
 5. serve   — SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by
              layer: batched LlamaEngine.generate and SeedLlamaInterface
              requests, greedy and sampled.
-6. train   — SEED-LLaMA-8B (32 layers, bf16, seeded weights) + LoRA r=16
+6. server  — the throughput server on the same 8B int8 weights: the W8A8
+             encoder (quantize_for_serving + serving_fast_config: 156
+             w8a8_matmul launches per encode); a ScheduledEngine with 16 fp8
+             slots, a registered 256-token prefix and 24 requests from 4
+             threads; the /generate HTTP service on an ephemeral port; the
+             fp8 and int8 ring caches and a num_beams=5 request through
+             LlamaEngine.
+7. train   — SEED-LLaMA-8B (32 layers, bf16, seeded weights) + LoRA r=16
              through Trainer: grad_accum 2 x micro-batch 4 x 1024 tokens,
              per-layer recompute, causal attention of every layer through the
              flash forward, dq and dk/dv kernels; AdamW, cosine schedule with
-             warm-up; four steps, a saved state, and a fifth step from a
+             warm-up; three steps, a saved state, and a fourth step from a
              fresh trainer that restored it.
 
-Phases 4-5 (serving) and phase 6 (training) are the main paths: the launch
-counters of a path's kernels are set to 0 just before it and read just after.
+Phases 4-5 (serving), phase 6 (the throughput server) and phase 7 (training)
+are the main paths: the launch counters of a path's kernels are set to 0 just
+before it and read just after.
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
 one before that the card.
 """
 from __future__ import annotations
 
+import base64
 import dataclasses
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +60,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores
+INT8_OPS = 1979e12              # dense int8 tensor-core peak
 PEAK_FLOPS = {torch.bfloat16: BF16_FLOPS, torch.float32: FP32_FLOPS}
 SEED = 0
 
@@ -357,6 +370,89 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     return record
 
 
+# -------------------------------------------------- phase 2, kernel row 6
+
+# the four matmuls of a ViT block at B=8 (M = 8 x 257), 39 blocks per encode
+W8A8_ENCODER = [(1408, 4224), (1408, 1408), (1408, 6144), (6144, 1408)]
+W8A8_LLAMA = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 40320)]
+
+
+def phase_w8a8_kernel(name: str, flush: torch.Tensor) -> dict:
+    """Kernel row 6 against its plain version. The int32 sums are exact and
+    the epilogue is two fp32 products in the plain version's order, so the
+    tolerance is one rounding of the output type: 2**-8 of max|y| in bf16,
+    2**-23 in fp32 (the results have been equal bit for bit). The library
+    yardstick is torch._int_mm plus the same epilogue (rows padded to 32
+    where M <= 16, which _int_mm refuses)."""
+    import torch.nn.functional as F
+    from seed_tpu_torch.ops.int8_matmul import (w8a8_epilogue, w8a8_matmul,
+                                                w8a8_matmul_plain)
+    from seed_tpu_torch.ops.quantization import quantize_acts, quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(2056, K, N, dt) for K, N in W8A8_ENCODER
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(256, K, N, dt) for K, N in W8A8_LLAMA
+              for dt in (torch.bfloat16, torch.float32)]
+    cases += [(100, 1408, 4224, torch.bfloat16),    # ragged M below 128
+              (16, 4096, 11008, torch.bfloat16)]    # decode rows (16 slots)
+    worst = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    ops_total = bytes_total = 0.0
+    for M, K, N, dtype in cases:
+        qw = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * 0.02)
+        xq, xs = quantize_acts(torch.randn(M, K, generator=gen, device="cuda") * 3)
+        wq, ws = qw["kernel_q"], qw["scale"]
+        got = w8a8_matmul(xq, xs, wq, ws, dtype)
+        want = w8a8_matmul_plain(xq, xs, wq, ws, dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        limit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+        if not rel <= limit:
+            raise AssertionError(f"w8a8_matmul M={M} K={K} N={N} {dtype}: "
+                                 f"relative error {rel} > {limit}")
+        worst = max(worst, err)
+        pad = (0, 0, 0, 32 - M) if M <= 16 else None
+
+        def library():
+            a = xq if pad is None else F.pad(xq, pad)
+            return w8a8_epilogue(torch._int_mm(a, wq)[:M], xs, ws, dtype)
+
+        if not torch.equal(library(), want):
+            raise AssertionError(f"w8a8_matmul M={M} K={K} N={N}: the library "
+                                 "yardstick computes another function")
+        ms = time_ms(lambda: w8a8_matmul(xq, xs, wq, ws, dtype), flush=flush)
+        plain = time_ms(lambda: w8a8_matmul_plain(xq, xs, wq, ws, dtype), 3,
+                        flush)
+        lib = time_ms(library, flush=flush)
+        nbytes = M * K + K * N + 4 * M + 4 * N + M * N * dtype.itemsize
+        ops = 2 * M * N * K
+        bms, by = bound_ms(nbytes, ops, INT8_OPS)
+        per_encode = 39 if (M == 2056 and dtype == torch.bfloat16) else 0
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
+            tot[key] += per_encode * val
+        bytes_total += per_encode * nbytes
+        ops_total += per_encode * ops
+        emit("kernels", kernel="w8a8_matmul", M=M, K=K, N=N,
+             out=str(dtype).split(".")[-1], max_abs_err=err, rel_err=rel,
+             tol_rel=limit, bit_equal=bool(torch.equal(got, want)),
+             launches_per_encode=per_encode, card=name, ms=ms, plain_ms=plain,
+             library_ms=lib, library="torch._int_mm + epilogue"
+             + (", rows padded to 32" if pad else ""), bound_ms=bms,
+             bound_by=by, tops=ops / ms / 1e9)
+        del qw, xq, xs, wq, ws, got, want
+    # the record is per launch, averaged over one encode's mix of shapes
+    n = 39 * len(W8A8_ENCODER)
+    bms, by = bound_ms(bytes_total / n, ops_total / n, INT8_OPS)
+    record = dict(ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
+                  library_ms=tot["library_ms"] / n, bound_ms=bms, bound_by=by,
+                  max_abs_err=worst)
+    emit("kernels", kernel="w8a8_matmul", summary="mean per launch over one "
+         "W8A8 encode at B=8 (156 launches)", card=name, **record)
+    return {"w8a8_matmul": record}
+
+
 # --------------------------------------------------------------- phase 3
 
 def _cast(tree, dtype):
@@ -463,25 +559,31 @@ def _check_segments(label: str, mode: str, segments) -> None:
             raise AssertionError(f"{label} {mode}: segment kind {s.kind}")
 
 
-def phase_serve(name: str, tok_params, codes: torch.Tensor) -> None:
-    """SEED-LLaMA-8B, int8 weights, served through LlamaEngine and
-    SeedLlamaInterface."""
+def init_llama_int8(name: str):
+    """SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by layer."""
     from seed_tpu_torch.models import llama as M
-    from seed_tpu_torch.models import seed_tokenizer as ST
-    from seed_tpu_torch.ops.int8_matmul import can_use_kernel, int8_matmul
     from seed_tpu_torch.ops.quantization import DEFAULT_TARGETS
-    from seed_tpu_torch.serving.engine import GenerationConfig, LlamaEngine
-    from seed_tpu_torch.serving.multimodal import (ByteTextTokenizer,
-                                                   SeedLlamaInterface)
-    cfg = M.SEED_LLAMA_8B
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     t0 = time.perf_counter()
-    params = M.init_llama(gen, cfg, torch.bfloat16,
+    params = M.init_llama(gen, M.SEED_LLAMA_8B, torch.bfloat16,
                           quantize_targets=DEFAULT_TARGETS)
     torch.cuda.synchronize()
     emit("serve", what="init SEED_LLAMA_8B, int8 layer by layer",
          seconds=time.perf_counter() - t0,
          gib_allocated=torch.cuda.memory_allocated() / 2 ** 30, card=name)
+    return params
+
+
+def phase_serve(name: str, params, tok_params, codes: torch.Tensor) -> None:
+    """SEED-LLaMA-8B, int8 weights, served through LlamaEngine and
+    SeedLlamaInterface."""
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.ops.int8_matmul import can_use_kernel, int8_matmul
+    from seed_tpu_torch.serving.engine import GenerationConfig, LlamaEngine
+    from seed_tpu_torch.serving.multimodal import (ByteTextTokenizer,
+                                                   SeedLlamaInterface)
+    cfg = M.SEED_LLAMA_8B
     per_prefill = 7 * cfg.layers + 1     # q k v o gate up down, + lm_head
     engine = LlamaEngine(params, cfg, max_len=512)
     text = ByteTextTokenizer()
@@ -575,6 +677,368 @@ def phase_serve(name: str, tok_params, codes: torch.Tensor) -> None:
 
 # --------------------------------------------------------------- phase 6
 
+def phase_w8a8_encode(name: str, tok_params, raw: torch.Tensor):
+    """The W8A8 encoder as bench.py composes it: quantize_for_serving +
+    serving_fast_config, B=8. Returns the quantized params and config."""
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.ops.int8_matmul import w8a8_matmul
+    from seed_tpu_torch.ops.preprocess import preprocess
+    fast = ST.serving_fast_config(ST.SEED_TOKENIZER)
+    qparams, qcfg = ST.quantize_for_serving(tok_params, ST.SEED_TOKENIZER)
+    qcfg = ST.serving_fast_config(qcfg)
+    per_encode = 4 * qcfg.vit.depth
+    with torch.inference_mode():
+        images = preprocess(raw, 224, torch.bfloat16)
+        before = w8a8_matmul.launches
+        z_q = ST.encode_features(qparams, images, qcfg)
+        torch.cuda.synchronize()
+        if w8a8_matmul.launches - before != per_encode:
+            raise AssertionError(f"W8A8 encode: w8a8_matmul launched "
+                                 f"{w8a8_matmul.launches - before} times, not "
+                                 f"{per_encode}")
+        z = ST.encode_features(tok_params, images, fast)
+        cb = tok_params["vq"]["codebook"]
+        from seed_tpu_torch.models.quantizer import nearest_codes
+        ids_q, ids = nearest_codes(cb, z_q), nearest_codes(cb, z)
+        rel = ((z_q.float() - z.float()).abs().max()
+               / z.float().abs().max()).item()
+        # two absmax int8 quantizations per matmul, 156 matmuls deep: the
+        # features stay within a quarter of the bf16 encoder's scale
+        if not (math.isfinite(rel) and rel <= 0.25):
+            raise AssertionError(f"W8A8 encode: features differ from the bf16 "
+                                 f"encoder's by {rel} of their scale")
+        if ids_q.shape != (8, 32) or ids_q.min() < 0 or ids_q.max() >= 8192:
+            raise AssertionError("W8A8 encode: bad ids")
+        seconds = {}
+        for label, p, c in (("w8a8", qparams, qcfg), ("bf16_fast", tok_params, fast),
+                            ("w8a8", qparams, qcfg), ("bf16_fast", tok_params, fast)):
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = ST.encode(p, images, c)
+                torch.cuda.synchronize()
+                seconds.setdefault(label, []).append(time.perf_counter() - t0)
+            if label == "w8a8" and not torch.equal(out, ids_q):
+                raise AssertionError("W8A8 encode: ids differ between runs")
+    med = {k: statistics.median(v) for k, v in seconds.items()}
+    emit("w8a8_encode", batch=8, w8a8_matmul_launches_per_encode=per_encode,
+         img_per_s=8 / med["w8a8"], ms_per_encode=med["w8a8"] * 1e3,
+         ms_runs=[t * 1e3 for t in seconds["w8a8"]],
+         bf16_fast_img_per_s=8 / med["bf16_fast"],
+         bf16_fast_ms_runs=[t * 1e3 for t in seconds["bf16_fast"]],
+         feature_rel_err_vs_bf16=rel, feature_tol=0.25,
+         id_agreement_vs_bf16=(ids_q == ids).float().mean().item(), card=name)
+    return qparams, qcfg
+
+
+class _Keep(dict):
+    """The batcher's finished map, keeping every request that is popped so
+    its t_submit / t_first / t_done can be read afterwards."""
+
+    def __init__(self):
+        super().__init__()
+        self.popped = []
+
+    def pop(self, key):
+        req = super().pop(key)
+        self.popped.append(req)
+        return req
+
+
+def _agreement(a, b) -> float:
+    """Share of positions, over the shorter stream, with the same token."""
+    n = min(len(a), len(b))
+    return sum(x == y for x, y in zip(a, b)) / max(1, n)
+
+
+SCHED_SLOTS, SCHED_MAX_LEN, SCHED_CHUNK, PREFIX_LEN = 16, 1024, 8, 256
+# remainders after the 256-token prefix; the first is the prefix-hit check's
+# prompt (456 tokens: 200 after the prefix, a 256-token chunk, M >= 256)
+HIT_REMAINDERS = [200, 20, 40, 64, 100, 130, 300, 444, 30, 50, 90, 150]
+# prompts without the prefix; 600 and 700 exceed the largest bucket (512) and
+# take two prefill chunks
+MISS_LENGTHS = [300, 20, 45, 64, 100, 128, 200, 256, 500, 600, 700, 33]
+
+
+def phase_scheduler(name: str, params):
+    """ScheduledEngine: 16 fp8 slots, max_len 1024, decode_chunk 8, one
+    registered 256-token prefix, 24 requests from 4 threads. Returns the
+    engine (still open) for the HTTP phase."""
+    from seed_tpu_torch import BOI_TOKEN_ID
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.ops.int8_matmul import int8_matmul
+    from seed_tpu_torch.serving.engine import GenerationConfig
+    from seed_tpu_torch.serving.scheduler import ScheduledEngine
+    cfg = M.SEED_LLAMA_8B
+    rs = np.random.RandomState(SEED + 7)
+    words = lambda n: rs.randint(3, 32000, n).tolist()
+    prefix = [1] + words(PREFIX_LEN - 1)
+    hits = [prefix + words(n) for n in HIT_REMAINDERS]
+    misses = [[1] + words(n - 1) for n in MISS_LENGTHS]
+
+    def engine(dtype, with_prefix=True):
+        se = ScheduledEngine(params, cfg, slots=SCHED_SLOTS,
+                             max_len=SCHED_MAX_LEN, cache_dtype=dtype,
+                             decode_chunk=SCHED_CHUNK)
+        if with_prefix:
+            se.register_prefix(prefix)
+        return se
+
+    greedy = GenerationConfig(max_new_tokens=24, do_sample=False)
+    sampled = [GenerationConfig(max_new_tokens=32, temperature=t, top_p=p)
+               for t, p in ((0.7, 0.5), (1.0, 0.9), (1.3, 0.7))]
+    forced = GenerationConfig(max_new_tokens=32, temperature=0.7, top_p=0.5,
+                              forced_first_token=BOI_TOKEN_ID)
+    # a quarter greedy; three sampled groups with their own temperature and
+    # top_p and their own seed; two force_boi. Half of all start with the
+    # prefix.
+    calls = [
+        [(hits[0:3] + misses[0:3], greedy, None)],
+        [(hits[3:6] + misses[3:6], sampled[0], 11)],
+        [(hits[6:9] + misses[6:9], sampled[1], 12)],
+        [(hits[9:11] + misses[9:11], sampled[2], 13),
+         ([hits[11], misses[11]], forced, 14)],
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    se = engine(torch.float8_e4m3fn)
+    keep = se.batcher.finished = _Keep()
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            for j, (prompts, gen, seed) in enumerate(calls[i]):
+                results[i, j] = se.generate(prompts, gen, seed=seed)
+        except BaseException as e:      # re-raised on the main thread
+            errors.append(e)
+
+    before = int8_matmul.launches
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    kernel2 = int8_matmul.launches - before
+    n_req = n_tok = 0
+    for (i, j), outs in results.items():
+        prompts, gen, _ = calls[i][j]
+        for toks in outs:
+            n_req += 1
+            n_tok += len(toks)
+            if not 0 < len(toks) <= gen.max_new_tokens:
+                raise AssertionError(f"scheduler: a request of call {i},{j} "
+                                     f"returned {len(toks)} tokens, budget "
+                                     f"{gen.max_new_tokens}")
+            if any(not 0 <= t < cfg.vocab_size for t in toks):
+                raise AssertionError("scheduler: token outside the vocabulary")
+        if gen.forced_first_token is not None and any(
+                toks[0] != BOI_TOKEN_ID for toks in outs):
+            raise AssertionError("scheduler: force_boi did not force BOI")
+    if n_req != 24 or len(keep.popped) != 24:
+        raise AssertionError(f"scheduler: {n_req} of 24 requests finished")
+    # every chunk in the 256 or 512 bucket launches kernel 2 on the seven
+    # projections of each layer
+    if kernel2 <= 0 or kernel2 % (7 * cfg.layers):
+        raise AssertionError(f"scheduler: int8_matmul launched {kernel2} times")
+    ttft = [r.t_first - r.t_submit for r in keep.popped]
+    latency = [r.t_done - r.t_submit for r in keep.popped]
+    emit("scheduler", what="24 requests from 4 threads, 16 fp8 slots, max_len "
+         "1024, decode_chunk 8, one 256-token prefix", requests=n_req,
+         new_tokens=n_tok, drain_seconds=drain_s, tokens_per_s=n_tok / drain_s,
+         ttft_s_median=statistics.median(ttft), ttft_s_max=max(ttft),
+         latency_s_median=statistics.median(latency), latency_s_max=max(latency),
+         int8_matmul_launches=kernel2,
+         prefill_chunks_at_m_256_or_more=kernel2 // (7 * cfg.layers),
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         card=name)
+
+    # the same requests served alone
+    hit, miss = hits[0], misses[0]
+    mix_hit, mix_miss = results[0, 0][0], results[0, 0][3]
+    alone = se.generate([hit], greedy)[0], se.generate([miss], greedy)[0]
+    if alone != (mix_hit, mix_miss):
+        raise AssertionError("scheduler: a greedy request gave other tokens "
+                             "alone than in the mix")
+    seeded_mix = results[1, 0][0]
+    seeded_alone = se.generate([calls[1][0][0][0]], sampled[0], seed=11)[0]
+    if seeded_alone != seeded_mix:
+        raise AssertionError("scheduler: a seeded sampled request did not "
+                             "reproduce under the mix")
+    other_seed = se.generate([calls[1][0][0][0]], sampled[0], seed=12)[0]
+    emit("scheduler", greedy_alone_equals_mix=True, seeded_alone_equals_mix=True,
+         other_seed_differs=other_seed != seeded_alone, card=name)
+
+    # bf16 slots: a prefix hit against the same prompt with no prefix
+    # registered; and the fp8 slots' agreement with bf16 (informational)
+    bf = engine(torch.bfloat16)
+    bf_hit, bf_miss = bf.generate([hit], greedy)[0], bf.generate([miss], greedy)[0]
+    bf.close()
+    del bf
+    plain = engine(torch.bfloat16, with_prefix=False)
+    no_prefix = plain.generate([hit], greedy)[0]
+    plain.close()
+    del plain
+    torch.cuda.empty_cache()
+    if bf_hit != no_prefix:
+        raise AssertionError(f"scheduler: under bf16 slots a prefix hit gave "
+                             f"{bf_hit}, the run without the prefix {no_prefix}")
+    emit("scheduler", prefix_hit_equals_no_prefix_bf16=True,
+         prompt_tokens=len(hit), new_tokens=len(bf_hit),
+         fp8_vs_bf16_greedy_agreement=[_agreement(mix_hit, bf_hit),
+                                       _agreement(mix_miss, bf_miss)],
+         card=name)
+    return se
+
+
+def phase_http(name: str, se, qparams, qcfg) -> None:
+    """The /generate service in-process on an ephemeral port: the scheduled
+    engine behind SeedLlamaInterface with the W8A8 tokenizer."""
+    from PIL import Image
+    from seed_tpu_torch import IMG_FLAG
+    from seed_tpu_torch.ops.int8_matmul import w8a8_matmul
+    from seed_tpu_torch.serving.multimodal import SeedLlamaInterface
+    from seed_tpu_torch.serving.server import GenerateService, make_server
+    service = GenerateService(SeedLlamaInterface(se, qparams, qcfg))
+    server = make_server(service, host="127.0.0.1", port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(payload):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+    try:
+        pixels = np.random.RandomState(SEED + 8).randint(
+            0, 256, (300, 400, 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(pixels).save(buf, format="PNG")
+        before = w8a8_matmul.launches
+        answers = [
+            post({"text": f"USER: {IMG_FLAG} What is in the picture?\nASSISTANT:",
+                  "images": [base64.b64encode(buf.getvalue()).decode("ascii")],
+                  "max_new_tokens": 24}),
+            post({"text": f"USER: {IMG_FLAG} Draw it at night.\nASSISTANT:",
+                  "images": [list(range(100, 132))], "force_boi": True,
+                  "max_new_tokens": 40, "temperature": 0.7, "top_p": 0.5}),
+            post({"text": f"one {IMG_FLAG} and {IMG_FLAG}", "images": [[1] * 32]}),
+        ]
+        encoded = w8a8_matmul.launches - before
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for status, body, _ in answers:
+        if status != 200 or set(body) != {"text", "images", "images_ids",
+                                          "error_msg"}:
+            raise AssertionError(f"http: status {status}, keys {sorted(body)}")
+        if (not isinstance(body["text"], str)
+                or len(body["images"]) != body["text"].count(IMG_FLAG)
+                or any(len(ids) != 32 for ids in body["images_ids"])):
+            raise AssertionError(f"http: malformed response {body}")
+    (_, png, s0), (_, boi, s1), (_, bad, _) = answers
+    if len(png["images_ids"]) < 1 or png["images_ids"][0] == boi["images_ids"][0]:
+        raise AssertionError("http: the uploaded image was not encoded")
+    if boi["images_ids"][0] != list(range(100, 132)):
+        raise AssertionError("http: cached ids were not passed through")
+    if not bad["error_msg"] or bad["text"] or "placeholders" not in bad["error_msg"][0]:
+        raise AssertionError(f"http: a mismatched {IMG_FLAG} count answered {bad}")
+    if encoded != 4 * qcfg.vit.depth:       # one pixel image, one encode
+        raise AssertionError(f"http: w8a8_matmul launched {encoded} times")
+    emit("http", what="POST /generate: a base64 PNG; cached ids + force_boi; a "
+         "mismatched <image> count", seconds=[s0, s1],
+         text_chars=[len(png["text"]), len(boi["text"])],
+         images=[len(png["images"]), len(boi["images"])],
+         error_msg=[png["error_msg"], boi["error_msg"], bad["error_msg"]],
+         w8a8_matmul_launches=encoded, card=name)
+
+
+def phase_caches_and_beam(name: str, params, tok_params, codes) -> None:
+    """LlamaEngine with fp8 and int8 ring caches against bf16, and one
+    num_beams=5 caption-style request."""
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.serving.engine import GenerationConfig, LlamaEngine
+    from seed_tpu_torch.serving.multimodal import (ByteTextTokenizer,
+                                                   SeedLlamaInterface)
+    cfg = M.SEED_LLAMA_8B
+    text = ByteTextTokenizer()
+    batch = [text.encode(f"Request {i}: describe a quiet harbour at dawn.",
+                         add_bos=True) for i in range(4)]
+    greedy = GenerationConfig(max_new_tokens=24, do_sample=False)
+    dtypes = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn,
+              "int8": torch.int8}
+    out, state = {}, {}
+    ids = torch.tensor([p + [0] * (64 - len(p)) for p in batch], device="cuda")
+    for label, dtype in dtypes.items():
+        engine = LlamaEngine(params, cfg, max_len=512, cache_dtype=dtype)
+        out[label] = engine.generate(batch, greedy)
+        if out[label] != engine.generate(batch, greedy):
+            raise AssertionError(f"ring cache {label}: greedy output differs "
+                                 "between runs")
+        tokens = [t for row in out[label] for t in row]
+        if not tokens or any(not 0 <= t < cfg.vocab_size for t in tokens):
+            raise AssertionError(f"ring cache {label}: bad tokens")
+        with torch.inference_mode():
+            cache = M.init_cache(cfg, 4, 512, dtype)
+            logits, cache = M.prefill(params, ids, cache, cfg)
+        state[label] = (logits[:, -1].argmax(-1), cache)
+    # decode is bound by the host's launches and its time swings between
+    # calls: the three caches take turns, 5 rounds of 8 steps each (after a
+    # warm-up round), and each reports its median round
+    rounds = {label: [] for label in dtypes}
+    with torch.inference_mode():
+        for r in range(6):
+            for label in dtypes:
+                tok, cache = state[label]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    logits, cache = M.decode_step(params, tok[:, None], cache, cfg)
+                    tok = logits[:, 0].argmax(-1)
+                torch.cuda.synchronize()
+                if r:
+                    rounds[label].append((time.perf_counter() - t0) / 8 * 1e3)
+                state[label] = (tok, cache)
+                if not logits[..., :cfg.vocab_size].isfinite().all():
+                    raise AssertionError(f"ring cache {label}: non-finite logits")
+    step_ms = {label: statistics.median(v) for label, v in rounds.items()}
+    del state, cache, logits
+    agree = {label: statistics.mean(_agreement(a, b) for a, b in
+                                    zip(out[label], out["bf16"]))
+             for label in ("fp8", "int8")}
+    emit("ring_cache", what="LlamaEngine.generate, B=4, bucket 64, max_len 512, "
+         "24 greedy tokens", decode_ms_per_step_median=step_ms,
+         decode_ms_per_step_rounds=rounds,
+         greedy_agreement_with_bf16=agree, card=name)
+
+    iface = SeedLlamaInterface(LlamaEngine(params, cfg, max_len=512), tok_params,
+                               ST.SEED_TOKENIZER, text)
+    prompt = iface.build_prompt([codes[0].tolist(), "Describe the image."])
+    beam = GenerationConfig(max_new_tokens=16, num_beams=5, length_penalty=1.0)
+    t0 = time.perf_counter()
+    best = iface.engine.generate([prompt], beam)[0]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not 0 < len(best) <= 16 or any(not 0 <= t < cfg.vocab_size for t in best):
+        raise AssertionError(f"beam: bad output {best}")
+    if best != iface.engine.generate([prompt], beam)[0]:
+        raise AssertionError("beam: output differs between runs")
+    emit("beam", what="num_beams=5 caption-style request, bf16 ring cache",
+         prompt_tokens=len(prompt), new_tokens=len(best), seconds=seconds,
+         ms_per_step=seconds / 16 * 1e3, card=name)
+
+
+# --------------------------------------------------------------- phase 7
+
 TRAIN_MICRO, TRAIN_SEQ, TRAIN_ACCUM = 4, 1024, 2
 # bf16 activations through 32 layers, attention probabilities rounded at
 # other points (tiled online softmax against one whole-row softmax): the two
@@ -651,7 +1115,7 @@ def phase_train(name: str) -> dict:
     loss_with = lambda use_flash: llm_loss(base, cfg, use_flash)
     trainer = lambda: llm_trainer(base, cfg, make_lora())
 
-    data = list(_train_batches(5, cfg.vocab_size, SEED + 5))
+    data = list(_train_batches(3, cfg.vocab_size, SEED + 5))
 
     # the first micro-batch's loss through the kernels against the same loss
     # through the plain mha path (not counted as the main path)
@@ -696,7 +1160,7 @@ def phase_train(name: str) -> dict:
         return loss, ms
 
     first = trainer()
-    for i in range(3):
+    for i in range(2):
         _, ms = run_step(first, data[i])
         if i == 0:      # lr(0) = 0 under the warm-up: nothing moves
             for (path, a), (_, b) in zip(leaves_with_path(first.state.params),
@@ -710,12 +1174,12 @@ def phase_train(name: str) -> dict:
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         mgr = CheckpointManager(tmp, max_to_keep=1)
         first.save_state(mgr)
-        loss_continued, ms = run_step(first, data[3])
+        loss_continued, ms = run_step(first, data[2])
         step_ms.append(ms)
         second = trainer()
-        if second.restore_state(mgr) != 3:
-            raise AssertionError("train: restore_state did not find step 3")
-    loss_resumed, ms = run_step(second, data[3])
+        if second.restore_state(mgr) != 2:
+            raise AssertionError("train: restore_state did not find step 2")
+    loss_resumed, ms = run_step(second, data[2])
     step_ms.append(ms)
     # the restored state is bit-identical and no kernel on the path uses
     # atomics; 1e-5 relative leaves room for a library matmul that splits K
@@ -753,13 +1217,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     from seed_tpu_torch.models import seed_tokenizer as ST
     from seed_tpu_torch.ops.flash_attention import short_mha
-    from seed_tpu_torch.ops.int8_matmul import int8_matmul
+    from seed_tpu_torch.ops.int8_matmul import int8_matmul, w8a8_matmul
 
     name = card()
     phase_build(name)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     record = phase_kernels(name, flush)
     record.update(phase_flash_kernels(name, flush))
+    record.update(phase_w8a8_kernel(name, flush))
     del flush
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -770,14 +1235,39 @@ def main() -> None:
     tok_params = _cast(params32, torch.bfloat16)
     del params32
 
+    def read_and_check(path: str, counters) -> dict:
+        got = {fn.__name__: fn.launches for fn in counters}
+        emit("launches", path=path, **got, card=name)
+        for kernel, n in got.items():
+            if n == 0:
+                raise AssertionError(f"{kernel} was never launched on the "
+                                     f"{path} path")
+        return got
+
     # the serving path: every launch from here on is counted
     short_mha.launches = 0
     int8_matmul.launches = 0
     codes = phase_encode(name, tok_params, raw)
-    phase_serve(name, tok_params, codes)
-    launches = {"short_mha": short_mha.launches,
-                "int8_matmul": int8_matmul.launches}
-    del tok_params, codes, raw
+    llama_int8 = init_llama_int8(name)
+    phase_serve(name, llama_int8, tok_params, codes)
+    launches = read_and_check("serving", (short_mha, int8_matmul))
+
+    # the throughput server's path, counted on its own
+    server_kernels = (short_mha, int8_matmul, w8a8_matmul)
+    for fn in server_kernels:
+        fn.launches = 0
+    qparams, qcfg = phase_w8a8_encode(name, tok_params, raw)
+    engine = phase_scheduler(name, llama_int8)
+    try:
+        phase_http(name, engine, qparams, qcfg)
+    finally:
+        engine.close()
+    del engine, qparams
+    torch.cuda.empty_cache()
+    phase_caches_and_beam(name, llama_int8, tok_params, codes)
+    for kernel, n in read_and_check("server", server_kernels).items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    del tok_params, codes, raw, llama_int8
     torch.cuda.empty_cache()
     # the training path: phase_train zeroes its kernels' counters itself
     launches.update(phase_train(name))
@@ -792,7 +1282,9 @@ def main() -> None:
                                "seed_tpu/ops/int8_matmul.py:32"),
                "flash_fwd": (flash_cu, "seed_tpu/ops/flash_attention.py:60"),
                "flash_bwd_dq": (flash_cu, "seed_tpu/ops/flash_attention.py:335"),
-               "flash_bwd_dkv": (flash_cu, "seed_tpu/ops/flash_attention.py:378")}
+               "flash_bwd_dkv": (flash_cu, "seed_tpu/ops/flash_attention.py:378"),
+               "w8a8_matmul": ("seed_tpu_torch/csrc/w8a8_matmul.cu",
+                               "seed_tpu/ops/int8_matmul.py:93")}
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
                     launches=launches[k],
                     max_abs_err=record[k]["max_abs_err"], ms=record[k]["ms"],

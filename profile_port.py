@@ -2,11 +2,13 @@
 
     python3 profile_port.py
 
-Seeded random weights at full width, as in chip_smoke.py. Four regions:
+Seeded random weights at full width, as in chip_smoke.py. Five regions:
 one SEED-tokenizer encode (exact config, B=8), one SEED-LLaMA-8B int8
-prefill (B=4 x 64 tokens, M=256), 8 decode steps (B=4), and one optimizer
-step of SEED-LLaMA-8B + LoRA training (bf16, grad_accum 2 x micro-batch 4 x
-1024 tokens, per-layer recompute, flash kernels). For each region
+prefill (B=4 x 64 tokens, M=256), 8 decode steps (B=4), 8 decode chunks of
+the continuous-batching scheduler (16 fp8 slots, max_len 1024, 8 steps per
+chunk), and one optimizer step of SEED-LLaMA-8B + LoRA training (bf16,
+grad_accum 2 x micro-batch 4 x 1024 tokens, per-layer recompute, flash
+kernels). For each region
 it prints one JSON line with the host wall time (median of 5 runs, no
 profiler), the device busy time (sum of kernel times under torch.profiler),
 the device's idle share, and the kernels with the most device time.
@@ -105,7 +107,29 @@ def main() -> None:
                 t = out[:, 0].argmax(-1)[:, None]
 
         region("decode 8 steps B=4", decode8, card)
-        del params, cache, logits
+        del cache, logits
+
+        # the scheduler's steady state: every slot busy, nothing queued, so a
+        # step is one chunk of 8 decode + sample steps and one token transfer
+        from seed_tpu_torch.serving.engine import GenerationConfig
+        from seed_tpu_torch.serving.scheduler import ContinuousBatcher
+        cb = ContinuousBatcher(params, lcfg, slots=16, max_len=1024,
+                               cache_dtype=torch.float8_e4m3fn, decode_chunk=8)
+        budget = GenerationConfig(max_new_tokens=900, temperature=0.7,
+                                  top_p=0.5, eos_token_id=-1)
+        for i in range(16):
+            cb.submit(torch.randint(3, 32000, (60 + 2 * i,), generator=gen,
+                                    device="cuda").tolist(), budget)
+
+        def chunks8():
+            for _ in range(8):
+                cb.step()
+            if any(r is None for r in cb.active):
+                raise AssertionError("scheduler region: a slot ran empty")
+
+        region("scheduler, 8 decode chunks of 8 steps, 16 fp8 slots", chunks8,
+               card, reps=3)
+        del params, cb
 
     # one optimizer step of LoRA training; the first call (lr(0) = 0, and the
     # first use of every shape) is region()'s warm-up

@@ -8,7 +8,8 @@ name there:
   tokenizer, LLaMA decoder + KV cache (plain functions over dicts of tensors)
 - ``seed_tpu_torch.ops``     — attention, the CUDA kernels and their plain
   PyTorch versions, int8 quantization, preprocessing, sampling
-- ``seed_tpu_torch.serving`` — generation engine + interleaved image/text API
+- ``seed_tpu_torch.serving`` — generation engine, continuous-batching
+  scheduler, interleaved image/text API, the /generate HTTP service
 - ``seed_tpu_torch.bridge``  — ``seed_tpu`` param trees (as numpy) -> tensors
 
 The package imports torch, numpy and the standard library only. Entry points

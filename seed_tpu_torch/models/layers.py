@@ -15,7 +15,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.int8_matmul import can_use_kernel, int8_matmul
+from ..ops.int8_matmul import (can_use_kernel, int8_matmul, int_dot,
+                               w8a8_epilogue, w8a8_kernel_takes, w8a8_matmul)
+from ..ops.quantization import quantize_acts
 
 Params = Dict[str, Any]
 
@@ -45,6 +47,34 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
             y = (x @ wq.to(x.dtype)) * p["scale"].to(x.dtype)
     else:
         y = x @ p["kernel"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+def linear_w8a8(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """W8A8 linear: dynamic per-token int8 activations x int8 weights ->
+    int32 on the int8 tensor cores. The int8 x int8 -> int32 product is
+    exact; the only error is the two absmax quantizations (per-token
+    activation row, per-output-channel weight column).
+    p: {"kernel_q": int8 [in, out], "scale": [out], "bias"?: [out]}.
+
+    seed_tpu computes this function with an XLA dot and never dispatches its
+    Pallas kernel; the result is the same bit for bit either way (exact sum,
+    same epilogue). Here a CUDA tensor goes through the hand-written kernel
+    whenever K and N tile by 128, at every M: that covers seed_tpu's
+    ``can_use_w8a8_kernel`` shapes (M >= 256) and the decode rows below them,
+    for which the card has no integer matmul. Shapes that do not tile (which
+    no kernel of seed_tpu takes either) go to the library product."""
+    xq, xs = quantize_acts(x)
+    wq = p["kernel_q"]
+    K, N = wq.shape
+    lead = x.shape[:-1]
+    if x.device.type == "cuda" and not w8a8_kernel_takes(K, N):
+        y = w8a8_epilogue(int_dot(xq, wq), xs, p["scale"], x.dtype)
+    else:
+        y = w8a8_matmul(xq.reshape(-1, K), xs.reshape(-1, 1), wq,
+                        p["scale"].float(), x.dtype).reshape(*lead, N)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y

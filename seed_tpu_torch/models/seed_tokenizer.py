@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.quantization import VIT_TARGETS, quantize_tree
 from . import layers as L
 from . import quantizer as VQ
 from .qformer import QFormerConfig, SEED_QFORMER, init_qformer, qformer_apply
@@ -99,6 +100,21 @@ def init_seed_tokenizer(gen: torch.Generator,
         params["distill_image_proj"] = lin(cfg.qformer.query_len * 32,
                                            cfg.image_embed_dim)
     return params
+
+
+def quantize_for_serving(params, cfg: SeedTokenizerConfig):
+    """bf16/fp32 tokenizer -> W8A8 int8 encoder serving variant.
+
+    Quantizes the four hot matmuls of every EVA-ViT block to int8 weights
+    (per-output-channel absmax) and flips ``cfg.vit.w8a8`` so block_apply
+    routes them through the int8 tensor cores (``layers.linear_w8a8``).
+    Q-Former, VQ distances, norms and the decode path are untouched, so
+    token-id drift comes only from the ViT features. Composes with
+    :func:`serving_fast_config`. Returns (quantized_params, new_cfg)."""
+    new = dict(params)
+    new["vit"] = quantize_tree(params["vit"], VIT_TARGETS)
+    return new, dataclasses.replace(
+        cfg, vit=dataclasses.replace(cfg.vit, w8a8=True))
 
 
 def serving_fast_config(cfg: SeedTokenizerConfig) -> SeedTokenizerConfig:

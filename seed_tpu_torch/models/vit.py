@@ -36,6 +36,11 @@ class ViTConfig:
     channels: int = 3
     use_flash: bool = False     # block attention through flash_attention
     flash_exact: bool = False   # ... with the kernel's op-faithful epilogue
+    # W8A8 serving of the frozen encoder: block matmuls whose params were
+    # quantized (ops/quantization.quantize_tree with VIT_TARGETS) run
+    # int8 x int8 -> int32 through the w8a8 kernel. Norms, attention, patch
+    # embed stay bf16/fp32.
+    w8a8: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -102,6 +107,12 @@ def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, patch * patch * C)
 
 
+def _lin(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+    if cfg.w8a8 and "kernel_q" in p:
+        return L.linear_w8a8(p, x)
+    return L.linear(p, x)
+
+
 def block_apply(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """Pre-norm transformer block (eva_vit.py Block.forward semantics)."""
     B, N, D = x.shape
@@ -109,7 +120,7 @@ def block_apply(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     act = _act(cfg)
 
     h = L.layer_norm(p["norm1"], x, cfg.ln_eps)
-    qkv = L.linear(p["attn"]["qkv"], h)
+    qkv = _lin(p["attn"]["qkv"], h, cfg)
     if "q_bias" in p["attn"] and "bias" not in p["attn"]["qkv"]:
         # EVA: bias on q and v only, k bias fixed at zero (eva_vit.py:136-139)
         bias = torch.cat([p["attn"]["q_bias"],
@@ -122,10 +133,10 @@ def block_apply(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
         o = flash_attention(q, k, v, exact=cfg.flash_exact)
     else:
         o = mha(q, k, v)
-    x = x + L.linear(p["attn"]["proj"], o.reshape(B, N, D))
+    x = x + _lin(p["attn"]["proj"], o.reshape(B, N, D), cfg)
 
     h = L.layer_norm(p["norm2"], x, cfg.ln_eps)
-    h = L.linear(p["mlp"]["fc2"], act(L.linear(p["mlp"]["fc1"], h)))
+    h = _lin(p["mlp"]["fc2"], act(_lin(p["mlp"]["fc1"], h, cfg)), cfg)
     return x + h
 
 

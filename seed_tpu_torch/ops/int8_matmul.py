@@ -1,12 +1,21 @@
-"""Int8-weight matmul kernel (counterpart of seed_tpu/ops/int8_matmul.py).
+"""Int8 matmul kernels (counterpart of seed_tpu/ops/int8_matmul.py).
 
-    y[M, N] = (x[M, K] @ w_q[K, N]) * scale[N]
+    int8_matmul:  y[M, N] = (x[M, K] @ w_q[K, N]) * scale[N]
+    w8a8_matmul:  y[M, N] = f32(xq[M, K] @ w_q[K, N]) * x_scale[M, 1] * w_scale[N]
 
 ``int8_matmul`` is the hand-written CUDA kernel that replaces seed_tpu's
 ``int8_matmul._kernel`` (csrc/int8_matmul.cu): the int8 weights are converted
 to x's type on chip, so device memory only ever holds them as int8. On a CPU
 tensor it runs ``int8_matmul_plain``; on a CUDA tensor it launches the kernel
 or raises. ``layers.linear`` routes to it under seed_tpu's ``can_use_kernel``.
+
+``w8a8_matmul`` is the hand-written kernel that replaces seed_tpu's
+``_w8a8_kernel`` (csrc/w8a8_matmul.cu): int8 activations times int8 weights on
+the int8 tensor cores with an exact int32 sum over the whole K, then the fp32
+epilogue ``acc * x_scale * w_scale`` rounded once to the output type. On a CPU
+tensor it runs ``w8a8_matmul_plain``; on a CUDA tensor it launches the kernel
+or raises. ``layers.linear_w8a8`` routes every CUDA product whose K and N tile
+by 128 to it (a superset of seed_tpu's ``can_use_w8a8_kernel``).
 """
 from __future__ import annotations
 
@@ -20,6 +29,10 @@ from . import kernels
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "seed_int8_matmul": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p]),
+}
+_W8A8_SIGNATURES = {
+    "seed_w8a8_matmul": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p]),
 }
 
@@ -91,3 +104,117 @@ def can_use_kernel(m: int, k: int, n: int) -> bool:
     return (m >= 256
             and _pick_block(n, 512) is not None
             and _pick_block(k, 512) is not None)
+
+
+# ------------------------------- W8A8 --------------------------------------
+
+def int_dot(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact integer product xq [..., K] @ w_q [K, N] -> int32, through a
+    library call. |sum| <= K * 127**2 (1.8e8 at K = 11008) fits int32 but not
+    fp32's 24 bits, so it is never taken in fp32: int32 on the CPU; float64 on
+    the card, which has no integer matmul (every partial sum is an integer
+    below 2**53, so float64 is exact)."""
+    if xq.device.type == "cpu":
+        return xq.to(torch.int32) @ w_q.to(torch.int32)
+    return (xq.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
+
+
+def w8a8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor,
+                  w_scale: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The exact dequant epilogue of seed_tpu's ``_w8a8_kernel``: the int32
+    sums in fp32, times the per-token activation scale, times the per-column
+    weight scale, in that order, one rounding to ``out_dtype``."""
+    return (acc.float() * x_scale.float() * w_scale.float()).to(out_dtype)
+
+
+def w8a8_matmul_plain(xq: torch.Tensor, x_scale: torch.Tensor,
+                      w_q: torch.Tensor, w_scale: torch.Tensor,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the exact integer product
+    (:func:`int_dot`), then the kernel's epilogue."""
+    return w8a8_epilogue(int_dot(xq, w_q), x_scale, w_scale, out_dtype)
+
+
+def w8a8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Fully quantized matmul ``(xq @ w_q) * x_scale * w_scale``.
+
+    xq [M, K] int8, x_scale [M, 1] f32 (per token), w_q [K, N] int8, w_scale
+    [N] f32 (per column) -> [M, N] ``out_dtype`` (bf16 or f32). Any M >= 1:
+    the ragged last tile is masked inside the kernel, where seed_tpu pads M.
+
+    CPU tensors take :func:`w8a8_matmul_plain`; CUDA tensors launch the
+    kernel of csrc/w8a8_matmul.cu or raise."""
+    if xq.device.type == "cpu":
+        return w8a8_matmul_plain(xq, x_scale, w_q, w_scale, out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"w8a8_matmul: unsupported device {xq.device}")
+    if xq.dim() != 2 or w_q.dim() != 2 or xq.shape[1] != w_q.shape[0]:
+        raise ValueError(f"w8a8_matmul: shapes {tuple(xq.shape)} @ "
+                         f"{tuple(w_q.shape)} do not chain")
+    M, K = xq.shape
+    N = w_q.shape[1]
+    if M < 1 or K % 128 or N % 128:
+        raise ValueError(f"w8a8_matmul: M={M} N={N} K={K}: K and N must tile "
+                         "by 128")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"w8a8_matmul: out_dtype {out_dtype} not supported")
+    if xq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise ValueError("w8a8_matmul: xq and w_q must be int8")
+    if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:
+        raise ValueError("w8a8_matmul: x_scale and w_scale must be float32")
+    if x_scale.shape != (M, 1) or w_scale.shape != (N,):
+        raise ValueError(f"w8a8_matmul: scale shapes {tuple(x_scale.shape)}, "
+                         f"{tuple(w_scale.shape)} != {(M, 1)}, {(N,)}")
+    tensors = (xq, x_scale, w_q, w_scale)
+    if any(t.device != xq.device for t in tensors):
+        raise ValueError("w8a8_matmul: all operands must share a device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("w8a8_matmul: all operands must be contiguous")
+    if xq.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError("w8a8_matmul: xq and w_q must be 16-byte aligned")
+    lib = kernels.load("w8a8_matmul", _W8A8_SIGNATURES)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.seed_w8a8_matmul(xq.data_ptr(), x_scale.data_ptr(),
+                                   w_q.data_ptr(), w_scale.data_ptr(),
+                                   out.data_ptr(), M, N, K, _DTYPES[out_dtype],
+                                   stream)
+    kernels.check(err, "w8a8_matmul")
+    w8a8_matmul.launches += 1
+    return out
+
+
+w8a8_matmul.launches = 0
+
+
+def w8a8_kernel_takes(k: int, n: int) -> bool:
+    """What the CUDA kernel needs of a product's shape: K and N that tile by
+    128. It takes every M, so on the card it also serves the decode rows
+    (M < 256) that :func:`can_use_w8a8_kernel` leaves out."""
+    return k >= 128 and k % 128 == 0 and n % 128 == 0
+
+
+def _pick_w8a8_block(dim: int, prefer: int) -> int:
+    """Largest 128-multiple divisor of ``dim`` that is <= ``prefer`` (the full
+    dim when it is itself small). seed_tpu's tile choice; the CUDA kernel has
+    its own tiles, and this stays for the dispatch predicate."""
+    if dim <= prefer:
+        return dim
+    for mult in range(prefer // 128, 0, -1):
+        if dim % (mult * 128) == 0:
+            return mult * 128
+    raise ValueError(f"dim {dim} has no 128-multiple block <= {prefer}")
+
+
+def can_use_w8a8_kernel(m: int, k: int, n: int) -> bool:
+    """seed_tpu's W8A8 dispatch predicate, unchanged: K and N tile by 128 and
+    M is a real tile (encode / prefill / training shapes, not decode)."""
+    if m < 256 or k % 128 or n % 128:
+        return False
+    try:
+        _pick_w8a8_block(n, 1536), _pick_w8a8_block(k, 2048)
+        return True
+    except ValueError:
+        return False

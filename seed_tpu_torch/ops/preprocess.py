@@ -134,3 +134,59 @@ def preprocess(images_u8: torch.Tensor, image_size: int = 224,
     else:
         x = images_u8.float() / 255.0
     return normalize(x, dtype)
+
+
+def center_crop_resize(images_u8: torch.Tensor, image_size: int = 224,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """Resize-shortest-side + center-crop variant (models/transforms.py:8-12)
+    through the continuous bicubic: resize so the short side equals
+    ``image_size``, then crop the long side's centre."""
+    b, h, w, c = images_u8.shape
+    x = images_u8.float() / 255.0
+    if h < w:
+        new_h, new_w = image_size, max(image_size, round(w * image_size / h))
+    else:
+        new_h, new_w = max(image_size, round(h * image_size / w)), image_size
+    x = resize_bicubic(x, (new_h, new_w))
+    top = (new_h - image_size) // 2
+    left = (new_w - image_size) // 2
+    x = x[:, top:top + image_size, left:left + image_size, :]
+    return normalize(x, dtype)
+
+
+def torchvision_resize_size(h: int, w: int, short: int) -> Tuple[int, int]:
+    """torchvision ``transforms.Resize(short)`` output size: the short side
+    becomes ``short`` and the long side scales with int() TRUNCATION
+    (torchvision functional_pil.resize semantics, NOT round())."""
+    if (w <= h and w == short) or (h <= w and h == short):
+        return h, w
+    if w < h:
+        return int(short * h / w), short
+    return short, int(short * w / h)
+
+
+def torchvision_crop_box(h: int, w: int, size: int) -> Tuple[int, int]:
+    """torchvision ``transforms.CenterCrop(size)`` top/left: uses
+    ``int(round((dim - size) / 2.0))``, Python banker's rounding, which
+    differs from floor on odd differences (e.g. diff 7 -> top 4 not 3)."""
+    return int(round((h - size) / 2.0)), int(round((w - size) / 2.0))
+
+
+def center_crop_resize_pil(images_u8: torch.Tensor, image_size: int = 224,
+                           interpolation: str = "bilinear",
+                           dtype=torch.bfloat16) -> torch.Tensor:
+    """BIT-EXACT ``Resize(image_size) + CenterCrop(image_size)``, the
+    reference's keep_ratio=True transform branch (torchvision defaults:
+    BILINEAR interpolation, truncating short-side size math,
+    banker's-rounded crop offsets), followed by ToTensor + CLIP Normalize,
+    on the device.
+
+    uint8 [B,H,W,3] -> normalized [B,image_size,image_size,3] ``dtype``."""
+    b, h, w, c = images_u8.shape
+    new_h, new_w = torchvision_resize_size(h, w, image_size)
+    if (new_h, new_w) != (h, w):
+        images_u8 = resize_bicubic_pil(images_u8, (new_h, new_w),
+                                       interpolation=interpolation)
+    top, left = torchvision_crop_box(new_h, new_w, image_size)
+    x = images_u8[:, top:top + image_size, left:left + image_size, :]
+    return normalize(x.float() / 255.0, dtype)

@@ -8,8 +8,10 @@ the unCLIP image embedding through the SEED tokenizer's ``decode_embedding``.
 Fusion happens in id space; the string adapters give the reference's
 '<img><img_00042>...</img>' string space.
 
-The unCLIP diffusion de-tokenizer (embedding -> pixels) and the host offload
-of the tokenizer are not ported yet (ROADMAP.md).
+The unCLIP diffusion de-tokenizer (embedding -> pixels) is not ported yet
+(ROADMAP.md): ``diffusion`` stays ``None`` and an image segment carries its
+embedding. ``offload=True`` keeps the tokenizer in pinned host memory between
+calls (serving/offload.py).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from .. import (BOI_TOKEN, BOI_TOKEN_ID, EOI_TOKEN, EOI_TOKEN_ID, IMG_TOKEN,
                 IMAGE_ID_SHIFT, NUM_IMG_CODES, NUM_IMG_TOKENS, resolve_device)
 from ..models import seed_tokenizer as ST
 from .engine import GenerationConfig, LlamaEngine
+from .offload import wrap_params
 
 
 class ByteTextTokenizer:
@@ -41,6 +44,24 @@ class ByteTextTokenizer:
         bs = bytes(i - self.vocab_offset for i in ids
                    if i >= self.vocab_offset and i < 259)
         return bs.decode("utf-8", errors="ignore")
+
+
+class HFTextTokenizer:
+    """Adapter for a locally available HF LLaMA (sentencepiece) tokenizer.
+    ``transformers`` is imported when one is constructed, not before."""
+
+    def __init__(self, path: str):
+        from transformers import LlamaTokenizer
+        self.tok = LlamaTokenizer.from_pretrained(path)
+        self.bos_token_id = self.tok.bos_token_id
+        self.eos_token_id = self.tok.eos_token_id
+
+    def encode(self, text: str, add_bos: bool = False) -> List[int]:
+        ids = self.tok(text, add_special_tokens=False).input_ids
+        return ([self.bos_token_id] + ids) if add_bos else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(list(ids), skip_special_tokens=True)
 
 
 @dataclass
@@ -106,35 +127,53 @@ class Segment:
     text: Optional[str] = None
     image_codes: Optional[np.ndarray] = None
     image_embedding: Optional[np.ndarray] = None   # unCLIP embedding
+    image: Optional[np.ndarray] = None             # decoded pixels (if diffusion on)
 
 
 class SeedLlamaInterface:
     """Tokenizer + LLM bundled behind one generate() call (LLMService of
     gradio_demo/seed_llama_flask.py:61-230). ``tok_params`` live on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default). ``engine`` is a LlamaEngine or a
+    ScheduledEngine: both expose ``generate(prompts, gen, seed)``."""
 
     def __init__(self, engine: Optional[LlamaEngine], tok_params=None,
                  tok_cfg: ST.SeedTokenizerConfig = ST.SEED_TOKENIZER,
-                 text_tokenizer=None, device="cuda"):
+                 text_tokenizer=None, diffusion=None, offload: bool = False,
+                 device="cuda"):
+        """``offload=True`` keeps the visual tokenizer in host memory and
+        swaps it onto the device only around encode/decode calls (the
+        reference's single-device trick, seed_llama_flask.py:53-84); the
+        LLM stays resident. ``diffusion`` is the pixel de-tokenizer, when
+        there is one."""
         self.device = resolve_device(device)
         self.engine = engine
         self.tok_params = tok_params
         self.tok_cfg = tok_cfg
         self.text = text_tokenizer or ByteTextTokenizer()
+        self.diffusion = diffusion
+        self.offload = offload
+        if tok_params is not None:
+            self._tok = wrap_params(tok_params, offload, self.device)
+            self.tok_params = self._tok.params
 
     # ---- image <-> ids ----
     @torch.inference_mode()
     def encode_image(self, images: torch.Tensor) -> np.ndarray:
         """preprocessed images [B,H,W,3] -> codes [B, 32]."""
         images = images.to(self.device)
-        return ST.encode(self.tok_params, images, self.tok_cfg).cpu().numpy()
+        with self._tok as p:
+            return ST.encode(p, images, self.tok_cfg).cpu().numpy()
 
     @torch.inference_mode()
     def decode_image(self, codes: np.ndarray) -> np.ndarray:
-        """codes [B, 32] -> unCLIP image embeddings [B, image_embed_dim]."""
+        """codes [B, 32] -> unCLIP image embeddings [B, image_embed_dim],
+        or pixels when a diffusion de-tokenizer is attached."""
         ids = torch.as_tensor(np.asarray(codes), device=self.device)
-        emb = ST.decode_embedding(self.tok_params, ids, self.tok_cfg)
-        return emb.float().cpu().numpy()
+        with self._tok as p:
+            emb = ST.decode_embedding(p, ids, self.tok_cfg).float().cpu().numpy()
+        if self.diffusion is not None:
+            return self.diffusion.generate(emb)
+        return emb
 
     # ---- prompt assembly ----
     def build_prompt(self, parts: Sequence[Union[str, np.ndarray]],
@@ -197,7 +236,11 @@ class SeedLlamaInterface:
                     codes = np.asarray(codes, np.int32)[None]
                     seg = Segment("image", image_codes=codes)
                     if self.tok_params is not None:
-                        seg.image_embedding = self.decode_image(codes)
+                        emb = self.decode_image(codes)
+                        if self.diffusion is not None:
+                            seg.image = emb
+                        else:
+                            seg.image_embedding = emb
                     segments.append(seg)
                     i = j + 1
                 else:

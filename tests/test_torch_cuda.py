@@ -11,8 +11,9 @@ import torch
 from seed_tpu_torch.models import layers as L
 from seed_tpu_torch.ops import flash_attention as TF
 from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
-from seed_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
-from seed_tpu_torch.ops.quantization import quantize_weight
+from seed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_plain,
+                                            w8a8_matmul, w8a8_matmul_plain)
+from seed_tpu_torch.ops.quantization import quantize_acts, quantize_weight
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +58,66 @@ def test_int8_matmul_kernel_matches_plain(gen, dtype, M):
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+# the four encoder shapes at B=8 (M = 8 x 257), the four 8B shapes at M = 256,
+# a ragged M below 128, and decode-sized rows (the small tile)
+W8A8_CASES = [(2056, 1408, 4224), (2056, 1408, 1408), (2056, 1408, 6144),
+              (2056, 6144, 1408), (256, 4096, 4096), (256, 4096, 11008),
+              (256, 11008, 4096), (256, 4096, 40320), (100, 1408, 4224),
+              (16, 4096, 11008), (1, 11008, 4096), (65, 256, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", W8A8_CASES)
+def test_w8a8_matmul_kernel_matches_plain(gen, dtype, M, K, N):
+    """The int32 sums are exact and the epilogue is two fp32 products in the
+    plain version's order, so kernel and plain version are equal bit for bit;
+    the stated tolerance is one rounding of the output type."""
+    qw = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * 0.02)
+    xq, xs = quantize_acts(torch.randn(M, K, generator=gen, device="cuda") * 3)
+    before = w8a8_matmul.launches
+    got = w8a8_matmul(xq, xs, qw["kernel_q"], qw["scale"], dtype)
+    assert w8a8_matmul.launches == before + 1
+    want = w8a8_matmul_plain(xq, xs, qw["kernel_q"], qw["scale"], dtype)
+    assert got.dtype == dtype and got.shape == (M, N)
+    tol = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+    assert torch.equal(got, want)
+
+
+def test_w8a8_matmul_saturated_sums_are_exact(gen):
+    """Every product at +-127 * +-127: the largest int32 sums the 8B shapes
+    can produce (K = 11008), far past fp32's 24 bits."""
+    M, K, N = 130, 11008, 128
+    xq = torch.full((M, K), 127, dtype=torch.int8, device="cuda")
+    wq = torch.full((K, N), -127, dtype=torch.int8, device="cuda")
+    wq[:, ::2] = 127
+    xs = torch.ones((M, 1), device="cuda")
+    ws = torch.ones((N,), device="cuda")
+    got = w8a8_matmul(xq, xs, wq, ws, torch.float32)
+    want = torch.tensor(float(K * 127 * 127), device="cuda").expand(M, N).clone()
+    want[:, 1::2] *= -1
+    assert torch.equal(got, want)
+
+
+def test_linear_w8a8_routes_every_m_to_the_kernel(gen):
+    p = quantize_weight(torch.randn(256, 384, generator=gen, device="cuda"))
+    p["bias"] = torch.randn(384, generator=gen, device="cuda")
+    before = w8a8_matmul.launches
+    for lead in ((4, 64), (4, 8), (1, 1)):                  # M = 256, 32, 1
+        x = torch.randn(*lead, 256, generator=gen, device="cuda")
+        y = L.linear_w8a8(p, x)
+        xq, xs = quantize_acts(x)
+        want = w8a8_matmul_plain(xq.reshape(-1, 256), xs.reshape(-1, 1),
+                                 p["kernel_q"], p["scale"], x.dtype)
+        assert torch.equal(y, want.reshape(*lead, 384) + p["bias"])
+    assert w8a8_matmul.launches == before + 3
+    # K, N that do not tile by 128: the library product, no launch
+    q = quantize_weight(torch.randn(96, 160, generator=gen, device="cuda"))
+    L.linear_w8a8(q, torch.randn(300, 96, generator=gen, device="cuda"))
+    assert w8a8_matmul.launches == before + 3
 
 
 # (Sq, Sk, H, D, causal, q_offset): the training shape cut in batch and
@@ -157,6 +218,14 @@ def test_kernels_raise_instead_of_falling_back(gen):
     w = torch.zeros(200, 256, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="tile by 128"):
         int8_matmul(x, w, torch.ones(256, device="cuda"))
+    xq = torch.zeros(256, 200, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="tile by 128"):
+        w8a8_matmul(xq, torch.ones(256, 1, device="cuda"), w,
+                    torch.ones(256, device="cuda"))
+    xq = torch.zeros(256, 256, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="not supported"):
+        w8a8_matmul(xq, torch.ones(256, 1, device="cuda"), xq,
+                    torch.ones(256, device="cuda"), torch.float16)
     q = torch.zeros(1, 257, 2, 88, dtype=torch.float16, device="cuda")
     with pytest.raises(ValueError, match="not supported"):
         short_mha(q, q, q, 1.0)

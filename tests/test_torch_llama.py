@@ -253,6 +253,9 @@ def test_port_imports_neither_jax_nor_seed_tpu():
         import seed_tpu_torch.serving.multimodal, seed_tpu_torch.serving.engine
         import seed_tpu_torch.models.seed_tokenizer, seed_tpu_torch.models.llama
         import seed_tpu_torch.ops.preprocess, seed_tpu_torch.ops.kernels
+        import seed_tpu_torch.serving.server, seed_tpu_torch.serving.scheduler
+        import seed_tpu_torch.serving.offload, seed_tpu_torch.serving.webui
+        import seed_tpu_torch.serving.conversation
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "seed_tpu")]
         assert not bad, bad
         print("isolated")
