@@ -45,6 +45,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -76,16 +77,29 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def time_ms(fn, iters: int = 10, flush: torch.Tensor = None) -> float:
+# device cycles the card idles before each timed call (~0.1 ms), long
+# enough for the host to enqueue the call behind it
+HOST_COVER_CYCLES = 200_000
+
+
+def time_ms(fn, iters: int = 10, flush: torch.Tensor = None,
+            hide_host: bool = True) -> float:
     """Mean device time of ``fn`` over ``iters`` calls (CUDA events), after
     one warm-up call; ``flush`` is overwritten before each call so the inputs
-    come from device memory, not from the 50 MB L2, as they do on the path."""
+    come from device memory, not from the 50 MB L2, as they do on the path.
+    With ``hide_host`` the device idles (``torch.cuda._sleep``) before the
+    start event while the host prepares the call, so the interval holds the
+    call's device work and not the wrapper's Python time; without it (the
+    method of PRs 1-3) a call whose host time exceeds the flush's counts
+    the difference."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -104,7 +118,44 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 # --------------------------------------------------------------- phase 1
 
-def phase_build(name: str) -> None:
+# the tensor-core kernels of rows 1 and 3, by their functions' names
+PTXAS_KERNELS = {"short_mha": "short_mha_bf16_kernel",
+                 "flash_fwd": "flash_fwd_bf16_kernel"}
+
+
+def ptxas_usage(reports: dict) -> dict:
+    """Registers and spill bytes nvcc reported for each instantiation of the
+    bf16 kernels of rows 1 and 3: {kernel: {instance: {registers,
+    spill_stores, spill_loads}}}, the instance being "Dp" (flash_fwd) or
+    "Dp/mode" (short_mha); empty for a library not built in this run."""
+    usage, current = {}, None
+    for log in reports.values():
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                current = None
+                for kernel, fn in PTXAS_KERNELS.items():
+                    args = re.search(fn + r"ILi(\d+)E(?:Li(\d+)E)?", entry.group(1))
+                    if args:
+                        key = "/".join(a for a in args.groups() if a is not None)
+                        current = usage.setdefault(kernel, {}).setdefault(key, {})
+                continue
+            if current is None:
+                continue
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              line)
+            if spill:
+                current["spill_stores"] = int(spill.group(1))
+                current["spill_loads"] = int(spill.group(2))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs:
+                current["registers"] = int(regs.group(1))
+    return usage
+
+
+def phase_build(name: str) -> dict:
+    """Build every kernel source; returns ptxas_usage() of the build. The
+    redesigned bf16 kernels must not spill."""
     from seed_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     reports = kernels.build()
@@ -113,7 +164,13 @@ def phase_build(name: str) -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  nvcc {kernel}: {line.strip()}")
-    emit("build", seconds=seconds, built=sorted(reports), card=name)
+    usage = ptxas_usage(reports)
+    for kernel, per_dp in usage.items():
+        for dp, use in per_dp.items():
+            if use.get("spill_stores") or use.get("spill_loads"):
+                raise AssertionError(f"{kernel} (Dp={dp}) spills registers: {use}")
+    emit("build", seconds=seconds, built=sorted(reports), ptxas=usage, card=name)
+    return usage
 
 
 # --------------------------------------------------------------- phase 2
@@ -137,14 +194,19 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
     record = {}
 
     # short_mha: EVA-ViT-g shape, both io types, all three epilogues
-    # (D=88 -> exact and fast-with-ones; D=128 -> fast-divide).
+    # (D=88 -> exact and fast-with-ones; D=128 -> fast-divide), timed; then
+    # D=64 and the longest sequence the dispatcher routes here (Sk = 1024),
+    # checked only.
     # Tolerance: fp32 2e-5 (sum order only); bf16 2**-6 (a bf16 rounding of
     # p or of the output may land one ulp apart when sums differ in order).
     tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
+    cases = [(8, 257, 16, D, exact, True) for D, exact in
+             ((88, True), (88, False), (128, True), (128, False))]
+    cases += [(8, 257, 16, 64, True, False), (2, 1024, 16, 88, True, False),
+              (2, 1024, 16, 88, False, False)]
     worst = 0.0
-    for D, exact in ((88, True), (88, False), (128, True), (128, False)):
+    for B, S, H, D, exact, timed in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            B, S, H = 8, 257, 16
             q, k, v = _qkv_views(gen, B, S, H, D, dtype)
             scale = D ** -0.5
             got = short_mha(q, k, v, scale, exact)
@@ -152,10 +214,16 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             same = (got == want).float().mean().item()
+            label = dict(B=B, S=S, H=H, D=D, exact=exact,
+                         dtype=str(dtype).split(".")[-1])
             if not err <= tol[dtype]:
-                raise AssertionError(f"short_mha D={D} exact={exact} {dtype}: "
-                                     f"max_abs_err {err} > {tol[dtype]}")
+                raise AssertionError(f"short_mha {label}: max_abs_err {err} > "
+                                     f"{tol[dtype]}")
             worst = max(worst, err)
+            if not timed:
+                emit("kernels", kernel="short_mha", **label, max_abs_err=err,
+                     frac_equal=same, tol=tol[dtype], card=name)
+                continue
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             ms = time_ms(lambda: short_mha(q, k, v, scale, exact), flush=flush)
             plain = time_ms(lambda: short_mha_plain(q, k, v, scale, exact),
@@ -168,11 +236,13 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
             timing = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                           bound_by=by)
             if dtype == torch.bfloat16 and D == 88 and exact:
-                record["short_mha"] = dict(timing)      # the exact encode's call
-            emit("kernels", kernel="short_mha", B=B, S=S, H=H, D=D,
-                 exact=exact, dtype=str(dtype).split(".")[-1],
-                 max_abs_err=err, frac_equal=same, tol=tol[dtype], card=name,
-                 **timing)
+                # the exact encode's call; also timed as PRs 1-3 timed it
+                timing["ms_host_included"] = time_ms(
+                    lambda: short_mha(q, k, v, scale, exact), flush=flush,
+                    hide_host=False)
+                record["short_mha"] = dict(timing)
+            emit("kernels", kernel="short_mha", **label, max_abs_err=err,
+                 frac_equal=same, tol=tol[dtype], card=name, **timing)
     record["short_mha"]["max_abs_err"] = worst
 
     # int8_matmul: the four (K, N) pairs of the 8B prefill at M = 4 x 64,
@@ -242,12 +312,16 @@ FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 FLASH_LSE_TOL = 2e-5
 FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2.0 ** -5)}
 # (B, Sq, Sk, H, D, causal, q_offset, timed): the training shape; a ragged
-# causal one; the non-causal ViT shape (kv masking); a chunk at an offset
-# (forward only: its gradient takes the mha recompute)
+# causal one at D=64; the non-causal ViT shape (kv masking); a chunk at an
+# offset (forward only: its gradient takes the mha recompute); D=256 (the
+# bf16 forward's 32-row kv tile) with Sq not a multiple of its 64-row q
+# tile; a ragged chunk at an offset at D=64
 FLASH_CASES = [(4, 1024, 1024, 32, 128, True, 0, True),
                (2, 300, 300, 4, 64, True, 0, False),
                (2, 257, 257, 4, 88, False, 0, False),
-               (2, 256, 512, 4, 128, True, 256, False)]
+               (2, 256, 512, 4, 128, True, 256, False),
+               (2, 333, 333, 4, 256, True, 0, False),
+               (1, 190, 450, 4, 64, True, 260, False)]
 
 
 def _pairs(Sq, Sk, causal, q_offset):
@@ -342,6 +416,10 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                 timing = dict(ms=time_ms(fn, iters, flush),
                               plain_ms=time_ms(plain_fn, 2, flush),
                               library_ms=lib, bound_ms=bms, bound_by=by)
+                if dtype == torch.bfloat16 and kern == "flash_fwd":
+                    # also timed as PRs 1-3 timed it
+                    timing["ms_host_included"] = time_ms(fn, iters, flush,
+                                                         hide_host=False)
                 if dtype == torch.bfloat16:
                     record[kern] = dict(timing)
                 emit("kernels", kernel=kern, **label, max_abs_err=errs[kern],
@@ -1207,6 +1285,17 @@ def phase_train(name: str) -> dict:
     return {fn.__name__: fn.launches for fn in counters}
 
 
+def redesigned_smem_bytes() -> dict:
+    """Dynamic shared memory of one block of the bf16 kernels of rows 1 and
+    3 at the main path's head dims (88 and 128), as their launchers ask."""
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops import kernels
+    short = kernels.load("short_mha", TF._SIGNATURES)
+    flash = TF._flash_lib(torch.bfloat16, 128)
+    return {"short_mha": short.seed_short_mha_smem_bytes(257, 88, 1),
+            "flash_fwd": flash.seed_flash_fwd_smem_bytes(1, 128)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1220,7 +1309,7 @@ def main() -> None:
     from seed_tpu_torch.ops.int8_matmul import int8_matmul, w8a8_matmul
 
     name = card()
-    phase_build(name)
+    usage = phase_build(name)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     record = phase_kernels(name, flush)
     record.update(phase_flash_kernels(name, flush))
@@ -1293,6 +1382,24 @@ def main() -> None:
                     bound_by=record[k]["bound_by"],
                     library_ms=record[k]["library_ms"])
                for k, (source, replaces) in sources.items()]
+    # rows 1 and 3: nvcc's registers and spills of the bf16 kernel at the
+    # main path's padded head dim (short_mha: the exact epilogue), at every
+    # other instance, and its shared memory
+    main_dp = {"short_mha": "96/0", "flash_fwd": "128"}
+    smem = redesigned_smem_bytes()
+    for entry in kernels:
+        k = entry["name"]
+        if k not in main_dp:
+            continue
+        per_dp = usage.get(k, {})
+        entry.update(
+            ms_host_included=record[k]["ms_host_included"],
+            registers=per_dp.get(main_dp[k], {}).get("registers"),
+            registers_by_instance={key: u.get("registers")
+                                   for key, u in sorted(per_dp.items())},
+            spill_bytes=(sum(u.get("spill_stores", 0) + u.get("spill_loads", 0)
+                             for u in per_dp.values()) if per_dp else None),
+            smem_bytes=smem[k])
     print(name)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

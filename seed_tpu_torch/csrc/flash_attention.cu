@@ -10,7 +10,9 @@
 //             running max m, running sum l and the output accumulator are fp32;
 //             p = exp(s - m) is rounded to the io type before P@V; the output
 //             is acc * (1 / l) and lse = m + log(l); a q tile that meets no kv
-//             tile gives output 0 and lse 0.
+//             tile gives output 0 and lse 0. The bf16 forward keeps its scores
+//             in base 2 (s * scale * log2 e, p = exp2(s - m), lse = m ln 2 +
+//             log(l)), which its plain version repeats.
 //   backward  p = exp(s - lse) is recomputed, dp = dO . V, ds = p * (dp - delta)
 //             with delta = rowsum(dO * O) handed in; p and ds are rounded to the
 //             io type before their products; dq and dk take the scale once, at
@@ -25,25 +27,33 @@
 // 1.25x and 1.5x the forward's bytes, so both are bound by operations (0.052
 // and 0.070 ms).
 //
-// Design: the TPU kernel keeps whole K/V rows of a head in VMEM and walks
-// 512-row tiles; a Hopper block has 227 KB. Here one block owns (batch, head,
-// one q tile) in the forward and in dq, and (batch, head, one kv tile) in
-// dk/dv, and streams the other side through shared memory tile by tile, so
-// no kernel needs atomics and results repeat from run to run. Tiles are
-// square: 64 rows for bf16 (32 when D > 128), 32 for fp32 (16 when D > 128),
-// which keeps the largest kernel (dk/dv: four operand tiles, two fp32 score
-// tiles, two io-type tiles and two fp32 accumulators) inside shared memory up
-// to D = 256. Every product runs out of shared memory through one tile
-// primitive: bf16 takes the tensor cores through WMMA (mma.sync) fragments
-// with fp32 accumulators that live in shared memory between steps, which is
-// what lets the forward rescale its accumulator rows by exp(m_old - m_new)
-// without knowing the fragment layout; fp32 has no full-precision tensor-core
-// path (TF32 rounds the products) and runs the same primitive on the FMA
-// units. q, k, v and dO are read in place as [B, S, H, D] through element
-// strides, ragged S and D are masked while staging (rows past the end and
-// columns from D up to the next multiple of 16 are zero), and nothing is
-// padded or transposed in device memory. It is a first, simple kernel:
-// accumulators in registers, wgmma and TMA pipelines are later work.
+// Design of the bf16 forward (flash_fwd_bf16_kernel), the FlashAttention-2
+// shape of the work: one block of 4 warps owns 64 q rows of one (batch,
+// head), each warp 16 rows. Q·K^T and P·V run on mma.sync m16n8k16 with the
+// score tile, the running max and sum and the 16 x Dp output accumulator in
+// registers; the softmax reduces a row over the four threads of a quad, P
+// goes from accumulator to A fragment in registers, and the accumulator is
+// rescaled by alpha in place. Q is staged once (and held as fragments up to
+// Dp = 128); K and V tiles of 64 rows (32 above Dp = 128, where the
+// accumulator takes the registers) stream through a two-stage cp.async ring,
+// so tile j + 1 is in flight while tile j is multiplied. Shared rows are
+// padded by 16 bytes, which keeps ldmatrix free of bank conflicts. Only tiles
+// that cross the diagonal or the end of the keys apply the element mask, and
+// the q tiles launch heaviest first so the causal triangle's long rows do not
+// trail the grid. No atomics and no split over kv: one block writes each
+// output row, so results repeat bit for bit.
+//
+// The fp32 forward and the two backward kernels are the first design: one
+// block owns (batch, head, one square tile) and streams the other operand
+// through shared memory tile by tile. Tiles are 64 rows for bf16 (32 when
+// D > 128), 32 for fp32 (16 when D > 128). Every product runs out of shared
+// memory through one tile primitive: bf16 takes the tensor cores through WMMA
+// fragments with fp32 accumulators that live in shared memory between steps;
+// fp32 has no full-precision tensor-core path (TF32 rounds the products) and
+// runs the same primitive on the FMA units. q, k, v and dO are read in place
+// as [B, S, H, D] through element strides, ragged S and D are masked while
+// staging (rows past the end and columns from D up to the next multiple of
+// 16 are zero), and nothing is padded or transposed in device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -52,6 +62,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -301,6 +313,196 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ------------------------------------------------------ forward, bf16 (mma)
+
+constexpr int kFwdThreads = 128;      // 4 warps, 16 q rows each
+constexpr int kFwdQTile = 64;
+constexpr int kFwdStages = 2;         // cp.async ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// kv tile rows of the bf16 forward by padded head dim: above 128 the output
+// accumulator (Dp / 2 fp32 registers a thread) leaves room for half the
+// score tile only.
+__host__ __device__ constexpr int fwd_kv_tile(int Dp) { return Dp <= 128 ? 64 : 32; }
+
+// grid (H, B, q tiles). o is contiguous [B, Sq, H, D], lse fp32 [B, H, Sq].
+// `scale_log2` is scale * log2(e) in fp32.
+template <int Dp>
+__global__ void __launch_bounds__(kFwdThreads)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int H, int D, Strides qs,
+                      Strides ks, Strides vs, float scale_log2, int causal, int q_offset,
+                      int vec) {
+  using bf16 = __nv_bfloat16;
+  constexpr int KT = fwd_kv_tile(Dp);
+  constexpr int ld = Dp + sm90::kRowPad;
+  constexpr int NS = KT / 8;             // n8 tiles of a score row block
+  constexpr int ND = Dp / 8;             // n8 tiles of an output row block
+  constexpr int KD = Dp / 16;            // k16 steps of Q K^T
+  constexpr int KS = KT / 16;            // k16 steps of P V
+  constexpr bool kQRegs = Dp <= 128;     // Q fragments held in registers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kFwdQTile * ld;        // kFwdStages stages of KT rows
+  bf16* Vs = Ks + kFwdStages * KT * ld;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int r0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kFwdQTile;   // heaviest first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = warp * 16;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+
+  const int kv_tiles = (Sk + KT - 1) / KT;
+  int hi = kv_tiles;
+  if (causal) {
+    const int last_row = r0 + kFwdQTile - 1 + q_offset;
+    hi = last_row < 0 ? 0 : min(kv_tiles, last_row / KT + 1);
+  }
+
+  // the ring: kv tile j lives in stage j % kFwdStages, issued kFwdStages - 1
+  // tiles ahead; one group per tile (Q rides with tile 0)
+  auto stage_kv = [&](int j) {
+    const int at = (j % kFwdStages) * KT * ld;
+    sm90::stage_tile<Dp, kFwdThreads>(Ks + at, kb, ks.s, j * KT, Sk, KT, D, vec);
+    sm90::stage_tile<Dp, kFwdThreads>(Vs + at, vb, vs.s, j * KT, Sk, KT, D, vec);
+  };
+  sm90::stage_tile<Dp, kFwdThreads>(Qs, qb, qs.s, r0, Sq, kFwdQTile, D, vec);
+#pragma unroll
+  for (int i = 0; i < kFwdStages - 1; ++i) {
+    if (i < hi) stage_kv(i);
+    sm90::cp_async_commit();
+  }
+
+  // this thread's two rows (g and g + 8 of the warp's 16), on the causal scale
+  const int row_lo = r0 + wrow0 + g + q_offset;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t qf[kQRegs ? KD : 1][4];
+
+  for (int j = 0; j < hi; ++j) {
+    sm90::cp_async_wait<kFwdStages - 2>();
+    __syncthreads();     // tile j visible; every warp is past tile j - 1
+    if (j + kFwdStages - 1 < hi) stage_kv(j + kFwdStages - 1);
+    sm90::cp_async_commit();
+    const bf16* Kt = Ks + (j % kFwdStages) * KT * ld;
+    const bf16* Vt = Vs + (j % kFwdStages) * KT * ld;
+    if constexpr (kQRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) sm90::load_a(qf[kk], Qs, ld, wrow0, kk * 16, lane);
+      }
+    }
+
+    // S = Q K^T, then scores in base 2
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+        a[0] = qf[kk][0], a[1] = qf[kk][1], a[2] = qf[kk][2], a[3] = qf[kk][3];
+      } else {
+        sm90::load_a(a, Qs, ld, wrow0, kk * 16, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kf[4];
+        sm90::load_b_nk(kf, Kt, ld, n * 8, kk * 16, lane);
+        sm90::mma_bf16(s[n], a, kf[0], kf[1]);
+        sm90::mma_bf16(s[n + 1], a, kf[2], kf[3]);
+      }
+    }
+    const int c0 = j * KT;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale_log2);
+    // element masks only where the tile crosses the diagonal or the keys' end
+    if (c0 + KT > Sk || (causal && c0 + KT - 1 > r0 + wrow0 + q_offset)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + n * 8 + 2 * t + (e & 1);
+          const int row = row_lo + (e >> 1) * 8;
+          if ((causal && col > row) || col >= Sk) s[n][e] = kMaskValue;
+        }
+    }
+
+    // online softmax over the thread's two rows; quads hold whole rows
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = sm90::quad_max(mx);
+      alpha[i] = exp2f(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][2 * i] = exp2f(s[n][2 * i] - mx);
+        s[n][2 * i + 1] = exp2f(s[n][2 * i + 1] - mx);
+        sum += s[n][2 * i] + s[n][2 * i + 1];
+      }
+      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), sm90::quad_sum(sum));
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V, P rounded to bf16 on its way to the A fragment
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      sm90::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t vf[4];
+        sm90::load_b_kn(vf, Vt, ld, kk * 16, n * 8, lane);
+        sm90::mma_bf16(acc[n], a, vf[0], vf[1]);
+        sm90::mma_bf16(acc[n + 1], a, vf[2], vf[3]);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wrow0 + g + 8 * i;
+    if (row >= Sq) continue;
+    const float l_inv = l[i] == 0.f ? 1.f : 1.f / l[i];
+    bf16* orow = o + (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const int col = n * 8 + 2 * t;
+      const float v0 = acc[n][2 * i] * l_inv, v1 = acc[n][2 * i + 1] * l_inv;
+      if ((D & 1) == 0 && col + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (col < D) orow[col] = __float2bfloat16_rn(v0);
+        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+    if (t == 0)
+      lse[((long long)b * H + h) * Sq + row] =
+          l[i] == 0.f ? 0.f : __fadd_rn(__fmul_rn(m[i], kLn2), logf(l[i]));
+  }
+}
+
 // ------------------------------------------------------------ backward: dq
 // grid (q tiles, H, B). lse and delta are fp32 [B, H, Sq]; dq is contiguous
 // [B, Sq, H, D]. No q_offset: the caller takes another route for it.
@@ -452,10 +654,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 int round16(int d) { return (d + 15) / 16 * 16; }
 
-// Square tile of the three kernels, by io type (0 fp32, 1 bf16) and head dim.
+// Square tile of the backward kernels and of the fp32 forward, by io type
+// (0 fp32, 1 bf16) and head dim.
 int tile_for(int dtype, int D) {
   if (dtype == 1) return D <= 128 ? 64 : 32;
   return D <= 128 ? 32 : 16;
+}
+
+// q and kv tile rows of the forward.
+int fwd_q_tile(int dtype, int D) { return dtype == 1 ? kFwdQTile : tile_for(dtype, D); }
+int fwd_kv_tile_for(int dtype, int D) {
+  return dtype == 1 ? fwd_kv_tile(sm90::padded_head_dim(D)) : tile_for(dtype, D);
 }
 
 // Dynamic shared memory of a kernel that holds `n_io` operand tiles, `n_p`
@@ -489,6 +698,45 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
       static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, D, Dp, tile, qs, ks, vs, scale,
       causal, q_offset, vec);
   return (int)cudaGetLastError();
+}
+
+template <int Dp> size_t fwd_bf16_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (kFwdQTile + 2 * kFwdStages * fwd_kv_tile(Dp)) *
+         (Dp + sm90::kRowPad);
+}
+
+template <int Dp>
+int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                    int Sq, int Sk, int H, int D, Strides qs, Strides ks, Strides vs,
+                    float scale, int causal, int q_offset, int vec, cudaStream_t st) {
+  const int q_tiles = (Sq + kFwdQTile - 1) / kFwdQTile;
+  if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_bf16_smem_bytes<Dp>();
+  cudaError_t err = allow_smem(flash_fwd_bf16_kernel<Dp>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = scale * kLog2e;
+  dim3 grid(H, B, q_tiles);
+  flash_fwd_bf16_kernel<Dp><<<grid, kFwdThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, D, qs, ks, vs, scale_log2, causal, q_offset, vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                      int Sq, int Sk, int H, int D, Strides qs, Strides ks, Strides vs,
+                      float scale, int causal, int q_offset, int vec, cudaStream_t st) {
+#define SEED_FWD_CASE(dp)                                                                 \
+  case dp:                                                                                \
+    return launch_fwd_bf16<dp>(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale, causal, \
+                               q_offset, vec, st);
+  switch (sm90::padded_head_dim(D)) {
+    SEED_FWD_CASE(32) SEED_FWD_CASE(64) SEED_FWD_CASE(96)
+    SEED_FWD_CASE(128) SEED_FWD_CASE(192) SEED_FWD_CASE(256)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SEED_FWD_CASE
 }
 
 template <typename T>
@@ -541,7 +789,25 @@ bool bad_shape(int B, int Sq, int Sk, int H, int D, int dtype) {
 // Outputs are contiguous [B, S, H, D]; lse and delta are fp32 [B, H, Sq].
 // Each function returns the launch's cudaError_t (0 on success).
 
-extern "C" int seed_flash_tile(int dtype, int D) { return tile_for(dtype, D); }
+extern "C" int seed_flash_fwd_q_tile(int dtype, int D) { return fwd_q_tile(dtype, D); }
+extern "C" int seed_flash_fwd_kv_tile(int dtype, int D) { return fwd_kv_tile_for(dtype, D); }
+extern "C" int seed_flash_bwd_tile(int dtype, int D) { return tile_for(dtype, D); }
+
+// Dynamic shared memory of one forward block (the wrapper's record).
+extern "C" int seed_flash_fwd_smem_bytes(int dtype, int D) {
+  if (dtype == 1) {
+    switch (sm90::padded_head_dim(D)) {
+      case 32: return (int)fwd_bf16_smem_bytes<32>();
+      case 64: return (int)fwd_bf16_smem_bytes<64>();
+      case 96: return (int)fwd_bf16_smem_bytes<96>();
+      case 128: return (int)fwd_bf16_smem_bytes<128>();
+      case 192: return (int)fwd_bf16_smem_bytes<192>();
+      default: return (int)fwd_bf16_smem_bytes<256>();
+    }
+  }
+  const int tile = tile_for(dtype, D);
+  return (int)smem_bytes<float>(tile, round16(D), 3, 1, 1, 1);
+}
 
 extern "C" int seed_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int Sq, int Sk, int H, int D, const long long* strides,
@@ -552,8 +818,8 @@ extern "C" int seed_flash_fwd(const void* q, const void* k, const void* v, void*
       vs{strides[6], strides[7], strides[8]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale,
-                                     causal, q_offset, vec, dtype, st);
+    return dispatch_fwd_bf16(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale, causal,
+                             q_offset, vec, st);
   return launch_fwd<float>(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale, causal,
                            q_offset, 0, dtype, st);
 }

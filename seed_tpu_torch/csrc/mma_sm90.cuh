@@ -1,0 +1,157 @@
+// Warp-level tensor-core primitives shared by the bf16 attention kernels
+// (flash_attention.cu's forward, short_mha.cu): mma.sync m16n8k16 with fp32
+// accumulators in registers, ldmatrix (plain and .trans) for the operands,
+// cp.async copies of 16 bytes into shared memory, and the conversion of an
+// fp32 accumulator fragment to a bf16 A operand without a trip through
+// shared memory.
+//
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A 16x16 (4 x b32): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                      a3 (g+8, 2t+8..)
+//   B 16x8  (2 x b32): b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+//   C 16x8  (4 x f32): c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1)
+// A row of a C fragment is spread over the four threads of a quad, so a
+// row's max or sum is the thread's own values reduced over lanes xor 1, 2.
+//
+// Shared tiles are row-major with rows of Dp + 8 bf16 (Dp a multiple of 16):
+// the row stride is an odd multiple of 16 bytes modulo 128, so the eight
+// 16-byte rows one ldmatrix phase reads fall in distinct bank groups.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int kRowPad = 8;    // bf16 elements of padding per shared row
+
+// The padded head dims (multiples of 16) the bf16 kernels are built for; a
+// head dim D runs in the smallest that holds it, its extra columns zero.
+__host__ __device__ constexpr int padded_head_dim(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// D (+)= A * B, bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8, and register j of every lane holds its part of matrix j.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A fragment of the 16x16 block at (row0, col0) of a row-major tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
+                                       int row0, int col0, int lane) {
+  const int r = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int c = col0 + (lane >> 4) * 8;
+  ldmatrix_x4(a, tile + r * ld + c);
+}
+
+// B fragments of two n8 tiles (n0, n0 + 8) over k16 at k0, where the tile
+// holds B transposed: row n, column k (K of S = Q K^T). {b[0], b[1]} is the
+// n0 tile, {b[2], b[3]} the n0 + 8 tile.
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16* tile, int ld,
+                                          int n0, int k0, int lane) {
+  const int r = n0 + (lane & 7) + (lane >> 4) * 8;
+  const int c = k0 + ((lane >> 3) & 1) * 8;
+  ldmatrix_x4(b, tile + r * ld + c);
+}
+
+// The same two n8 tiles when the tile holds B as it is: row k, column n
+// (V of O = P V), through ldmatrix.trans.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* tile, int ld,
+                                          int k0, int n0, int lane) {
+  const int r = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int c = n0 + (lane >> 4) * 8;
+  ldmatrix_x4_trans(b, tile + r * ld + c);
+}
+
+// Two fp32 values rounded to nearest-even bf16 and packed low, high.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of k16 block j of P from the C fragments of its two n8
+// tiles (2j and 2j + 1), each value rounded to bf16.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// 16 bytes global -> shared, asynchronously; with `valid` false nothing is
+// read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N committed groups of this thread are still in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [row0, row0 + rows_in_tile) of one (batch, head) of a [B, S, H, D]
+// bf16 tensor (row stride `row_stride` elements) into a shared tile of
+// `tile_rows` x Dp with row stride Dp + kRowPad. Rows from `rows` on and
+// columns from D up to Dp are zero. With `vec` (D, the strides and the base
+// address multiples of 8 elements) every thread issues 16-byte cp.async
+// copies; otherwise it loads element by element, synchronously.
+template <int Dp, int kThreads>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long row_stride, int row0, int rows,
+                                           int tile_rows, int D, bool vec) {
+  constexpr int ld = Dp + kRowPad, chunks = Dp / 8;
+  if (vec) {
+    for (int i = threadIdx.x; i < tile_rows * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      const bool ok = row0 + r < rows && c < D;
+      const __nv_bfloat16* s = ok ? src + (long long)(row0 + r) * row_stride + c : src;
+      cp_async_16(dst + r * ld + c, s, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < tile_rows * Dp; i += kThreads) {
+    const int r = i / Dp, d = i - r * Dp;
+    dst[r * ld + d] = (row0 + r < rows && d < D) ? src[(long long)(row0 + r) * row_stride + d]
+                                                 : __float2bfloat16_rn(0.f);
+  }
+}
+
+}  // namespace sm90

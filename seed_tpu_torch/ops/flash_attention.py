@@ -42,13 +42,16 @@ SMEM_LIMIT = 232448   # dynamic shared memory a block may use on the H100
 # masked scores of the tiled kernels: large and finite, never -inf
 # (exp(-inf - -inf) is NaN); seed_tpu's MASK_VALUE
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
+# the bf16 forward's base-2 scores (csrc/flash_attention.cu kLog2e, kLn2)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 _SIGNATURES = {
     "seed_short_mha": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p]),
-    "seed_short_mha_smem_bytes": [ctypes.c_int, ctypes.c_int],
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p]),
+    "seed_short_mha_smem_bytes": [ctypes.c_int] * 3,
 }
 
 
@@ -60,6 +63,15 @@ def _mode(exact: bool, head_dim: int) -> int:
     if exact:
         return EXACT
     return FAST_ONES if head_dim % 128 != 0 else FAST_DIV
+
+
+def _vec(q: torch.Tensor, staged) -> int:
+    """1 when a bf16 kernel may stage 8 elements (16 bytes) at a time: the
+    head dim, every row, batch and head stride and every base address are
+    multiples of 8 elements."""
+    return int(q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
+               and all(s % 8 == 0 for t in staged for s in t.stride()[:3])
+               and all(t.data_ptr() % 16 == 0 for t in staged))
 
 
 def short_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,7 +104,8 @@ def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (any strides with a unit stride on D) -> contiguous [B, Sq, H, D].
 
     CPU tensors take :func:`short_mha_plain`; CUDA tensors launch the
-    kernel of csrc/short_mha.cu or raise."""
+    kernel of csrc/short_mha.cu (bf16: tensor cores, recomputed scores per
+    pass; fp32: FMA units) or raise."""
     if q.device.type == "cpu":
         return short_mha_plain(q, k, v, sm_scale, exact)
     if q.device.type != "cuda":
@@ -115,7 +128,7 @@ def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= D <= 256:
         raise ValueError(f"short_mha: head dim {D} outside 1..256")
     lib = _lib()
-    if lib.seed_short_mha_smem_bytes(Sk, D) > SMEM_LIMIT:
+    if lib.seed_short_mha_smem_bytes(Sk, D, _DTYPES[q.dtype]) > SMEM_LIMIT:
         raise ValueError(f"short_mha: Sk={Sk}, D={D} needs more shared memory "
                          "than a block has")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -126,7 +139,8 @@ def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, Sq, Sk, H, D, q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(sm_scale), _mode(exact, D), _DTYPES[q.dtype], stream)
+            float(sm_scale), _mode(exact, D), _vec(q, (q, k, v)),
+            _DTYPES[q.dtype], stream)
     kernels.check(err, "short_mha")
     short_mha.launches += 1
     return out
@@ -138,7 +152,10 @@ short_mha.launches = 0
 # ------------------------------------------------ tiled flash: rows 3, 4, 5
 
 _FLASH_SIGNATURES = {
-    "seed_flash_tile": [ctypes.c_int, ctypes.c_int],
+    "seed_flash_fwd_q_tile": [ctypes.c_int, ctypes.c_int],
+    "seed_flash_fwd_kv_tile": [ctypes.c_int, ctypes.c_int],
+    "seed_flash_bwd_tile": [ctypes.c_int, ctypes.c_int],
+    "seed_flash_fwd_smem_bytes": [ctypes.c_int, ctypes.c_int],
     "seed_flash_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
@@ -151,20 +168,38 @@ _FLASH_SIGNATURES = {
 }
 
 
-def kv_tile(dtype: torch.dtype, head_dim: int) -> int:
-    """Rows of the square tile the three kernels of csrc/flash_attention.cu
-    walk (``tile_for`` there); the plain versions walk the same tiles so
-    that sums and rescalings happen in the same order."""
+def bwd_tile(dtype: torch.dtype, head_dim: int) -> int:
+    """Rows of the square tile the two backward kernels of
+    csrc/flash_attention.cu walk (``tile_for`` there); their plain versions
+    walk the same tiles so that sums happen in the same order."""
     if dtype == torch.bfloat16:
         return 64 if head_dim <= 128 else 32
     return 32 if head_dim <= 128 else 16
 
 
+def fwd_tiles(dtype: torch.dtype, head_dim: int) -> Tuple[int, int]:
+    """(q tile, kv tile) rows of the forward kernel (``fwd_q_tile`` and
+    ``fwd_kv_tile_for`` there). bf16: 64 q rows (4 warps of 16), kv tiles of
+    64 rows up to D = 128 and 32 above, where the register accumulator
+    leaves room for half the score tile. fp32: the backward's square tile.
+    :func:`flash_fwd_plain` rescales at the same kv tile boundaries and stops
+    a causal q tile where the kernel does."""
+    if dtype == torch.bfloat16:
+        return 64, (64 if head_dim <= 128 else 32)
+    tile = bwd_tile(dtype, head_dim)
+    return tile, tile
+
+
 def _flash_lib(dtype: torch.dtype, head_dim: int):
     lib = kernels.load("flash_attention", _FLASH_SIGNATURES)
-    if lib.seed_flash_tile(_DTYPES[dtype], head_dim) != kv_tile(dtype, head_dim):
-        raise RuntimeError("flash_attention: the kernel's tile differs from "
-                           "kv_tile(); the plain versions no longer mirror it")
+    code = _DTYPES[dtype]
+    kernel = ((lib.seed_flash_fwd_q_tile(code, head_dim),
+               lib.seed_flash_fwd_kv_tile(code, head_dim)),
+              lib.seed_flash_bwd_tile(code, head_dim))
+    if kernel != (fwd_tiles(dtype, head_dim), bwd_tile(dtype, head_dim)):
+        raise RuntimeError(f"flash_attention: the kernel's tiles {kernel} differ "
+                           "from fwd_tiles() / bwd_tile(); the plain versions "
+                           "no longer mirror them")
     return lib
 
 
@@ -188,15 +223,22 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The forward kernel's function in plain PyTorch: q [B, Sq, H, D],
     k/v [B, Sk, H, D] -> (o [B, Sq, H, D], lse [B, H, Sq] fp32).
 
-    Online softmax over kv tiles of ``kv_tile`` rows in the kernel's order:
-    fp32 scores times the scale; masked scores are MASK_VALUE; fp32 running
-    max, sum and accumulator; p rounded to the io type before P@V; output
-    ``acc * (1 / l)``. A causal q tile stops at its diagonal tile, and a q
-    tile that meets no kv tile gives output 0 and lse 0."""
+    Online softmax over the kernel's kv tiles (:func:`fwd_tiles`) in its
+    order: fp32 scores times the scale; masked scores are MASK_VALUE; fp32
+    running max, sum and accumulator; p rounded to the io type before P@V;
+    output ``acc * (1 / l)``. bf16 keeps the scores in base 2, as the kernel
+    does: s times ``scale * log2(e)`` (an fp32 product), p = exp2(s - m) and
+    lse = m * ln 2 + log(l). A causal q tile stops at the kv tile holding its
+    last row's diagonal, and a q tile that meets no kv tile gives output 0
+    and lse 0."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    tile = kv_tile(q.dtype, D)
+    q_tile, tile = fwd_tiles(q.dtype, D)
     dev = q.device
+    base2 = q.dtype == torch.bfloat16
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    scale = f32(sm_scale) * f32(LOG2E) if base2 else sm_scale
+    exp = torch.exp2 if base2 else torch.exp
     qf, kf, vf = _bhsd(q), _bhsd(k), _bhsd(v)
     kv_tiles = -(-Sk // tile)
     pad = kv_tiles * tile - Sk      # the kernel's last tile holds zero rows
@@ -205,9 +247,9 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
     rows = torch.arange(Sq, device=dev)
     if causal:
-        last_row = (rows // tile) * tile + tile - 1 + q_offset
+        last_row = (rows // q_tile) * q_tile + q_tile - 1 + q_offset
         hi = torch.where(last_row < 0, torch.zeros_like(rows),
-                         torch.clamp(last_row, min=0) // tile + 1)
+                         torch.clamp(last_row // tile + 1, max=kv_tiles))
     else:
         hi = torch.full_like(rows, kv_tiles)
     m = torch.full((B, H, Sq, 1), float("-inf"), device=dev)
@@ -216,12 +258,12 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j in range(kv_tiles):
         cols = torch.arange(j * tile, (j + 1) * tile, device=dev)
         kt, vt = kf[:, :, cols], vf[:, :, cols]
-        s = torch.matmul(qf, kt.transpose(-1, -2)) * sm_scale
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * scale
         s = s.masked_fill(_tile_mask(rows + q_offset, cols, causal, Sk),
                           MASK_VALUE)
         m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_next)
-        p = torch.exp(s - m_next)
+        alpha = exp(m - m_next)
+        p = exp(s - m_next)
         l_next = alpha * l + p.sum(dim=-1, keepdim=True)
         acc_next = acc * alpha + torch.matmul(p.to(q.dtype).float(), vt)
         met = (j < hi)[None, None, :, None]
@@ -231,7 +273,8 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     empty = l == 0
     l_inv = torch.where(empty, torch.ones_like(l), 1.0 / l)
     out = (acc * l_inv).to(q.dtype).permute(0, 2, 1, 3).contiguous()
-    lse = torch.where(empty, torch.zeros_like(l), m + torch.log(l))
+    lse = (m * f32(LN2) if base2 else m) + torch.log(l)
+    lse = torch.where(empty, torch.zeros_like(l), lse)
     return out, lse[..., 0].contiguous()
 
 
@@ -254,7 +297,7 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
     the scale applied once at the end."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    tile = kv_tile(q.dtype, D)
+    tile = bwd_tile(q.dtype, D)
     qf, kf, vf, gf = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(dout)
     rows = torch.arange(Sq, device=q.device)
     dq = torch.zeros((B, H, Sq, D), device=q.device)
@@ -273,7 +316,7 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
     dv = sum over q tiles of p_io^T @ dO, dk = scale * sum of ds_io^T @ q."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    tile = kv_tile(q.dtype, D)
+    tile = bwd_tile(q.dtype, D)
     qf, kf, vf, gf = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(dout)
     cols = torch.arange(Sk, device=q.device)
     dk = torch.zeros((B, H, Sk, D), device=q.device)
@@ -324,10 +367,7 @@ def _check_flash(name: str, q, k, v, dout=None, lse=None, delta=None):
                              f"[B, H, Sq] on q's device")
     flat = [s for t in staged for s in t.stride()[:3]]
     strides = (ctypes.c_longlong * len(flat))(*flat)
-    vec = int(q.dtype == torch.bfloat16 and D % 8 == 0
-              and all(s % 8 == 0 for s in flat)
-              and all(t.data_ptr() % 16 == 0 for t in staged))
-    return (B, Sq, Sk, H, D), strides, vec
+    return (B, Sq, Sk, H, D), strides, _vec(q, staged)
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

@@ -4,8 +4,9 @@ Each source in ``seed_tpu_torch/csrc/`` has a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/seed_tpu_torch/`` of the checkout and loaded with ``ctypes``. Nothing
 here includes PyTorch's headers, so a build takes seconds. A library is named
-after a digest of its source, so an edited source is rebuilt and a stale one
-is never loaded.
+after a digest of its source and of every shared header in ``csrc/``
+(``*.cuh``), so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 Building happens at first use (or up front through :func:`build`), never at
 import: the CPU tests import every module of the package on machines with no
@@ -46,8 +47,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / SOURCES[name]).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of one kernel source lives: named after a digest of
+    the source and of every header of ``csrc/`` it may include."""
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:

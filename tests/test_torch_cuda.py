@@ -26,13 +26,20 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# (exact, D, S): the ViT's three epilogues, a narrow ragged head, D=64, the
+# longest sequence the dispatcher routes here (Sk = 1024, K/V streamed), and
+# D=100 (not a multiple of 8: element-wise staging)
+SHORT_CASES = [(True, 88, 257), (False, 88, 257), (False, 128, 257),
+               (True, 40, 257), (True, 64, 257), (True, 88, 1024),
+               (False, 64, 1024), (True, 100, 257)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("exact,D", [(True, 88), (False, 88), (False, 128),
-                                     (True, 40)])
-def test_short_mha_kernel_matches_plain(gen, dtype, exact, D):
+@pytest.mark.parametrize("exact,D,S", SHORT_CASES)
+def test_short_mha_kernel_matches_plain(gen, dtype, exact, D, S):
     """Tolerance: fp32 2e-5 (sum order); bf16 2**-6 (a rounding of p or of
     the output one bf16 ulp apart)."""
-    B, S, H = 2, 257, 3
+    B, H = 2, 3
     qkv = torch.randn(B, S, 3 * H * D, generator=gen, device="cuda").to(dtype)
     q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
     before = short_mha.launches
@@ -122,10 +129,12 @@ def test_linear_w8a8_routes_every_m_to_the_kernel(gen):
 
 # (Sq, Sk, H, D, causal, q_offset): the training shape cut in batch and
 # heads, ragged causal, ragged non-causal (kv masking), a chunk at an offset,
-# and D > 128 (the smaller tile)
+# D > 128 (the smaller kv tile), D=256 with Sq not a multiple of the 64-row
+# q tile, a ragged chunk at an offset, and D=36 (element-wise staging)
 FLASH_CASES = [(1024, 1024, 2, 128, True, 0), (300, 300, 2, 64, True, 0),
                (257, 257, 2, 88, False, 0), (256, 512, 2, 128, True, 256),
-               (260, 260, 1, 160, True, 0)]
+               (260, 260, 1, 160, True, 0), (333, 333, 2, 256, True, 0),
+               (190, 450, 2, 64, True, 260), (100, 100, 2, 36, True, 0)]
 # fp32: sum order only. bf16: an output one bf16 ulp apart where a rounding
 # of p or of the output lands differently (|o| < 4), lse is fp32 either way.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
@@ -243,3 +252,38 @@ def test_linear_routes_prefill_to_the_kernel(gen):
     assert int8_matmul.launches == before
     L.linear(p, torch.randn(4, 64, 256, generator=gen, device="cuda"))  # M=256
     assert int8_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "short_mha"])
+def test_bf16_kernels_repeat_bit_for_bit(gen, kernel):
+    """No atomics and no split over kv: two calls on the same inputs give
+    the same bits (training's resume check depends on it)."""
+    if kernel == "flash_fwd":
+        q, k, v = _flash_inputs(gen, 1024, 1024, 4, 128, torch.bfloat16)
+        run = lambda: TF.flash_fwd(q, k, v, True, 128 ** -0.5)
+    else:
+        qkv = torch.randn(4, 257, 3 * 16 * 88, generator=gen,
+                          device="cuda").bfloat16()
+        q, k, v = (t.reshape(4, 257, 16, 88) for t in qkv.split(16 * 88, dim=-1))
+        run = lambda: (short_mha(q, k, v, 88 ** -0.5, True),
+                       short_mha(q, k, v, 88 ** -0.5, False))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel,S,D", [("flash_fwd", 300, 256),
+                                        ("short_mha", 257, 256),
+                                        ("short_mha", 1024, 88),
+                                        ("flash_fwd", 1024, 88)])
+def test_bf16_kernels_launch_at_the_edge_shapes(gen, kernel, S, D):
+    """D=256 and Sk=1024 in bf16 go to the kernel: one launch, no error."""
+    q, k, v = _flash_inputs(gen, S, S, 2, D, torch.bfloat16, B=1)
+    fn = TF.flash_fwd if kernel == "flash_fwd" else short_mha
+    before = fn.launches
+    out = (TF.flash_fwd(q, k, v, True, D ** -0.5)[0] if kernel == "flash_fwd"
+           else short_mha(q, k, v, D ** -0.5, True))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.shape == q.shape and out.isfinite().all()

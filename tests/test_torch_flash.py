@@ -166,12 +166,60 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                  TF.flash_bwd_dkv)] == counts
 
 
-@pytest.mark.parametrize("dtype,D,tile", [(torch.bfloat16, 128, 64),
-                                          (torch.bfloat16, 160, 32),
-                                          (torch.float32, 128, 32),
-                                          (torch.float32, 256, 16)])
-def test_plain_versions_walk_the_kernels_tiles(dtype, D, tile):
-    assert TF.kv_tile(dtype, D) == tile
+@pytest.mark.parametrize("dtype,D,fwd,bwd", [(torch.bfloat16, 128, (64, 64), 64),
+                                             (torch.bfloat16, 160, (64, 32), 32),
+                                             (torch.float32, 128, (32, 32), 32),
+                                             (torch.float32, 256, (16, 16), 16)])
+def test_plain_versions_walk_the_kernels_tiles(dtype, D, fwd, bwd):
+    """The forward's (q tile, kv tile) pair and the backward's square tile
+    are separate: the bf16 forward takes 64 q rows at every D and halves its
+    kv tile above 128; fp32 and the backward keep one square tile."""
+    assert TF.fwd_tiles(dtype, D) == fwd
+    assert TF.bwd_tile(dtype, D) == bwd
+
+
+# (name, Sq, Sk, D, causal, q_offset): Sq not a multiple of the forward's
+# 64-row q tile, D=88 (padded to 96 by the bf16 kernel)
+RETILED = [("ragged_causal_d88", 200, 200, 88, True, 0),
+           ("offset_ragged_d88", 100, 356, 88, True, 256)]
+
+
+def _pallas_fwd_bhsd(arrays, causal, scale, off, dtype, block=128):
+    """seed_tpu's _flash_fwd_bhsd in interpret mode on [B, H, S, D] inputs
+    padded to its tiles (rows) and to 128 lanes (D), as _flash_impl pads
+    them -> (o [B, Sq, H, D], lse [B, H, Sq])."""
+    q, k, v = (jnp.asarray(a, dtype).transpose(0, 2, 1, 3) for a in arrays)
+    Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    pad = lambda t, n: jnp.pad(t, ((0, 0), (0, 0), (0, -(-n // block) * block - n),
+                                   (0, 128 - D)))
+    o, lse = JF._flash_fwd_bhsd(pad(q, Sq), pad(k, Sk), pad(v, Sk), causal,
+                                scale, off, Sk, block, block)
+    return o[:, :, :Sq, :D].transpose(0, 2, 1, 3), lse[:, :, :Sq, 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,Sq,Sk,D,causal,off", RETILED,
+                         ids=[c[0] for c in RETILED])
+def test_retiled_forward_plain_matches_pallas_kernel(name, Sq, Sk, D, causal,
+                                                     off, dtype):
+    """flash_fwd_plain on the forward's own tiles (bf16: 64 q rows, 64-row kv
+    tiles, base-2 scores) against the Pallas _flash_fwd_bhsd. fp32: 2e-4 on
+    O, 1e-5 on lse (sum and rescale order only); bf16: within output ulps
+    (2**-7 relative plus 2**-8 absolute) and lse within 1e-4 (p rounded at
+    other running maxima)."""
+    arrays = qkv(Sq, Sk, 2, D, B=2)
+    want, want_lse = _pallas_fwd_bhsd(arrays, causal, D ** -0.5, off,
+                                      getattr(jnp, dtype))
+    got, lse = TF.flash_fwd_plain(*as_torch(arrays, getattr(torch, dtype)),
+                                  causal, D ** -0.5, off)
+    assert got.shape == (2, Sq, 2, D) and lse.shape == (2, 2, Sq)
+    if dtype == "float32":
+        np.testing.assert_allclose(f32(got), f32(want), atol=2e-4, rtol=2e-4)
+        np.testing.assert_allclose(f32(lse), f32(want_lse), atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(f32(got), f32(want), atol=2.0 ** -8,
+                                   rtol=2.0 ** -7)
+        np.testing.assert_allclose(f32(lse), f32(want_lse), atol=1e-4, rtol=1e-5)
 
 
 # ------------------------------------------------ the slice: LLaMA training

@@ -121,6 +121,29 @@ def test_flash_attention_routes_like_seed_tpu():
     assert TF.flash_fwd.launches == 0
 
 
+# ------------------------------------------------ the kernels' build
+
+def test_library_name_digests_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named after its source and every csrc/*.cuh it
+    may include: on a copy of csrc/, changing a header's bytes changes every
+    library path (so a stale library is never loaded), and a file that is
+    neither source nor header changes none."""
+    import shutil
+    from seed_tpu_torch.ops import kernels
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    paths = lambda: {name: kernels.library_path(name) for name in kernels.SOURCES}
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    before = paths()
+    (csrc / "notes.txt").write_text("not part of a build")
+    assert paths() == before
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    after = paths()
+    assert all(after[name] != before[name] for name in kernels.SOURCES)
+
+
 # ------------------------------------------------ kernel 2: int8_matmul
 
 @pytest.mark.parametrize("M", [256, 300])
