@@ -118,16 +118,19 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 # --------------------------------------------------------------- phase 1
 
-# the tensor-core kernels of rows 1 and 3, by their functions' names
+# the bf16 tensor-core kernels of rows 1 and 3-5, by their functions' names
 PTXAS_KERNELS = {"short_mha": "short_mha_bf16_kernel",
-                 "flash_fwd": "flash_fwd_bf16_kernel"}
+                 "flash_fwd": "flash_fwd_bf16_kernel",
+                 "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel"}
 
 
 def ptxas_usage(reports: dict) -> dict:
     """Registers and spill bytes nvcc reported for each instantiation of the
-    bf16 kernels of rows 1 and 3: {kernel: {instance: {registers,
-    spill_stores, spill_loads}}}, the instance being "Dp" (flash_fwd) or
-    "Dp/mode" (short_mha); empty for a library not built in this run."""
+    bf16 kernels of rows 1 and 3-5: {kernel: {instance: {registers,
+    spill_stores, spill_loads}}}, the instance being "Dp" (the flash
+    kernels) or "Dp/mode" (short_mha); empty for a library not built in this
+    run."""
     usage, current = {}, None
     for log in reports.values():
         for line in log.splitlines():
@@ -314,14 +317,16 @@ FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2.0 ** -5)}
 # (B, Sq, Sk, H, D, causal, q_offset, timed): the training shape; a ragged
 # causal one at D=64; the non-causal ViT shape (kv masking); a chunk at an
 # offset (forward only: its gradient takes the mha recompute); D=256 (the
-# bf16 forward's 32-row kv tile) with Sq not a multiple of its 64-row q
-# tile; a ragged chunk at an offset at D=64
+# bf16 forward's and dq's 32-row kv tiles, dk/dv's split columns) with Sq
+# not a multiple of the 64-row blocks; a ragged chunk at an offset at D=64;
+# D=36 (element-wise staging) with S a multiple of no tile
 FLASH_CASES = [(4, 1024, 1024, 32, 128, True, 0, True),
                (2, 300, 300, 4, 64, True, 0, False),
                (2, 257, 257, 4, 88, False, 0, False),
                (2, 256, 512, 4, 128, True, 256, False),
                (2, 333, 333, 4, 256, True, 0, False),
-               (1, 190, 450, 4, 64, True, 260, False)]
+               (1, 190, 450, 4, 64, True, 260, False),
+               (2, 100, 100, 4, 36, True, 0, False)]
 
 
 def _pairs(Sq, Sk, causal, q_offset):
@@ -333,7 +338,8 @@ def _pairs(Sq, Sk, causal, q_offset):
 
 def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     """Kernel rows 3-5 against their plain versions; times at the training
-    shape in bf16 (the record) and fp32."""
+    shape in bf16 (the record) and fp32, and the dq + dk/dv pair against the
+    library's whole backward."""
     import torch.nn.functional as F
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.ops.attention import mha, sliced_causal_mask
@@ -427,6 +433,15 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                      library="scaled_dot_product_attention(is_causal=True)"
                      + ("" if kern == "flash_fwd" else
                         " backward, dq+dk+dv in one call"), **timing)
+            # the pair against the library's whole backward
+            pair = time_ms(lambda: (TF.flash_bwd_dq(*args),
+                                    TF.flash_bwd_dkv(*args)), iters, flush)
+            flops = work["flash_bwd_dq"][0] + work["flash_bwd_dkv"][0]
+            emit("kernels", kernel="flash_bwd_dq+flash_bwd_dkv", **label,
+                 ms=pair, library_ms=lib_bwd, ratio_to_library=pair / lib_bwd,
+                 tflops=flops / pair * 1e-9, card=name,
+                 library="scaled_dot_product_attention(is_causal=True) "
+                 "backward, dq+dk+dv in one call")
             del qt, kt, vt, gt, sdpa
 
     # GQA through the dispatcher (8 query heads over 2 kv heads, repeated
@@ -1287,13 +1302,14 @@ def phase_train(name: str) -> dict:
 
 def redesigned_smem_bytes() -> dict:
     """Dynamic shared memory of one block of the bf16 kernels of rows 1 and
-    3 at the main path's head dims (88 and 128), as their launchers ask."""
+    3-5 at the main path's head dims (88 and 128), as their launchers ask."""
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.ops import kernels
     short = kernels.load("short_mha", TF._SIGNATURES)
     flash = TF._flash_lib(torch.bfloat16, 128)
     return {"short_mha": short.seed_short_mha_smem_bytes(257, 88, 1),
-            "flash_fwd": flash.seed_flash_fwd_smem_bytes(1, 128)}
+            **{k: flash.seed_flash_smem_bytes(i, 1, 128) for i, k in
+               enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}}
 
 
 def main() -> None:
@@ -1382,10 +1398,11 @@ def main() -> None:
                     bound_by=record[k]["bound_by"],
                     library_ms=record[k]["library_ms"])
                for k, (source, replaces) in sources.items()]
-    # rows 1 and 3: nvcc's registers and spills of the bf16 kernel at the
+    # rows 1 and 3-5: nvcc's registers and spills of the bf16 kernel at the
     # main path's padded head dim (short_mha: the exact epilogue), at every
     # other instance, and its shared memory
-    main_dp = {"short_mha": "96/0", "flash_fwd": "128"}
+    main_dp = {"short_mha": "96/0", "flash_fwd": "128", "flash_bwd_dq": "128",
+               "flash_bwd_dkv": "128"}
     smem = redesigned_smem_bytes()
     for entry in kernels:
         k = entry["name"]
@@ -1393,7 +1410,7 @@ def main() -> None:
             continue
         per_dp = usage.get(k, {})
         entry.update(
-            ms_host_included=record[k]["ms_host_included"],
+            ms_host_included=record[k].get("ms_host_included"),
             registers=per_dp.get(main_dp[k], {}).get("registers"),
             registers_by_instance={key: u.get("registers")
                                    for key, u in sorted(per_dp.items())},

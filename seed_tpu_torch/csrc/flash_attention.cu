@@ -10,55 +10,72 @@
 //             running max m, running sum l and the output accumulator are fp32;
 //             p = exp(s - m) is rounded to the io type before P@V; the output
 //             is acc * (1 / l) and lse = m + log(l); a q tile that meets no kv
-//             tile gives output 0 and lse 0. The bf16 forward keeps its scores
-//             in base 2 (s * scale * log2 e, p = exp2(s - m), lse = m ln 2 +
-//             log(l)), which its plain version repeats.
+//             tile gives output 0 and lse 0.
 //   backward  p = exp(s - lse) is recomputed, dp = dO . V, ds = p * (dp - delta)
 //             with delta = rowsum(dO * O) handed in; p and ds are rounded to the
 //             io type before their products; dq and dk take the scale once, at
 //             the end; all sums are fp32.
 //   Causal loops skip the tiles that lie wholly above the diagonal.
+// The bf16 kernels keep their scores in base 2: s * (scale * log2 e) and
+// exp2, with lse = m ln 2 + log(l) out of the forward and lse * log2 e in the
+// backward. The plain versions (ops/flash_attention.py) repeat it.
 //
 // What bounds it on the H100: at the training shape (B=4, H=32, S=1024, D=128,
 // bf16, causal) the forward is 2*B*H*S*S*D = 34 GFLOP over 134 MB of q, k, v
 // and o, about 256 operations per byte: just under the card's 295, so a
 // full-rate kernel sits at the memory bound (0.040 ms) with the tensor cores
-// (0.035 ms) right behind. dq runs three such products and dk/dv four, over
-// 1.25x and 1.5x the forward's bytes, so both are bound by operations (0.052
-// and 0.070 ms).
+// (0.035 ms) right behind. dq runs three such products (51.6 GFLOP) and dk/dv
+// four (68.8 GFLOP), over 1.25x and 1.5x the forward's bytes, so both are
+// bound by operations (0.052 and 0.070 ms).
 //
-// Design of the bf16 forward (flash_fwd_bf16_kernel), the FlashAttention-2
-// shape of the work: one block of 4 warps owns 64 q rows of one (batch,
-// head), each warp 16 rows. Q·K^T and P·V run on mma.sync m16n8k16 with the
-// score tile, the running max and sum and the 16 x Dp output accumulator in
-// registers; the softmax reduces a row over the four threads of a quad, P
-// goes from accumulator to A fragment in registers, and the accumulator is
-// rescaled by alpha in place. Q is staged once (and held as fragments up to
-// Dp = 128); K and V tiles of 64 rows (32 above Dp = 128, where the
-// accumulator takes the registers) stream through a two-stage cp.async ring,
-// so tile j + 1 is in flight while tile j is multiplied. Shared rows are
-// padded by 16 bytes, which keeps ldmatrix free of bank conflicts. Only tiles
-// that cross the diagonal or the end of the keys apply the element mask, and
-// the q tiles launch heaviest first so the causal triangle's long rows do not
-// trail the grid. No atomics and no split over kv: one block writes each
-// output row, so results repeat bit for bit.
+// The bf16 kernels share one shape, the FlashAttention-2 one: a block of 4
+// warps owns 64 rows of one (batch, head), each warp 16 rows, and streams the
+// other operand through a two-stage cp.async ring, so tile j + 1 is in flight
+// while tile j is multiplied. Every product is mma.sync m16n8k16 with fp32
+// accumulators in registers; operands come from shared rows padded by 16
+// bytes (ldmatrix free of bank conflicts); a C fragment becomes the next
+// product's bf16 A fragment in registers (c_to_a), so no score, P or dS
+// ever touches shared memory. Only tiles that cross the diagonal or the end
+// of the keys apply the element mask. No atomics and no split over the
+// streamed operand: one block writes each output row, so results repeat bit
+// for bit.
 //
-// The fp32 forward and the two backward kernels are the first design: one
-// block owns (batch, head, one square tile) and streams the other operand
-// through shared memory tile by tile. Tiles are 64 rows for bf16 (32 when
-// D > 128), 32 for fp32 (16 when D > 128). Every product runs out of shared
-// memory through one tile primitive: bf16 takes the tensor cores through WMMA
-// fragments with fp32 accumulators that live in shared memory between steps;
-// fp32 has no full-precision tensor-core path (TF32 rounds the products) and
-// runs the same primitive on the FMA units. q, k, v and dO are read in place
-// as [B, S, H, D] through element strides, ragged S and D are masked while
-// staging (rows past the end and columns from D up to the next multiple of
-// 16 are zero), and nothing is padded or transposed in device memory.
+//   forward (flash_fwd_bf16_kernel): 64 q rows; K and V tiles of 64 rows (32
+//     above Dp = 128, where the 16 x Dp output takes the registers); scores,
+//     running max and sum in registers, the softmax reduced over the four
+//     threads of a quad, the output rescaled by alpha in place; Q held as
+//     fragments up to Dp = 128. The q tiles launch heaviest first.
+//   dq (flash_bwd_dq_bf16_kernel): 64 q rows, Q and dO staged once, lse and
+//     delta of the thread's two rows in registers; per kv tile (64 rows, 32
+//     above Dp = 128) S = Q K^T and dP = dO V^T, p and ds in the C
+//     fragments, then dQ += dS K from the same K tile through ldmatrix.trans.
+//     The dQ accumulator (Dp / 2 registers a thread) stays in registers; Q is
+//     held as fragments up to Dp = 128. The q tiles launch heaviest first.
+//   dk/dv (flash_bwd_dkv_bf16_kernel): 64 kv rows, K and V staged once; per
+//     q tile the scores come transposed, S^T = K Q^T and dP^T = V dO^T, so P^T
+//     and dS^T sit in C fragments whose rows are the warp's own kv rows and go
+//     straight into dV += P^T dO and dK += dS^T Q. Q, dO, lse and delta tiles
+//     stream through the ring from the first q tile that reaches the kv
+//     tile's diagonal. dK and dV cost Dp fp32 registers a thread, so the q
+//     tile is 64 rows up to Dp = 64 and 32 above; above Dp = 128 two warps
+//     share each 16 kv rows and own half of dK's and dV's columns each (8
+//     warps; the scores are computed by both). The kv tiles launch in order,
+//     which is heaviest first for this kernel.
+//
+// The fp32 kernels are the first design: one block owns (batch, head, one
+// square tile of 32 rows, 16 when D > 128) and streams the other operand
+// through shared memory tile by tile, every product on the FMA units (fp32
+// has no full-precision tensor-core path; TF32 rounds the products) out of
+// shared memory, the fp32 accumulators kept there between steps.
+//
+// q, k, v and dO are read in place as [B, S, H, D] through element strides,
+// ragged S and D are masked while staging (rows past the end and columns
+// from D up to the padded head dim are zero), and nothing is padded or
+// transposed in device memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -67,17 +84,19 @@
 
 namespace {
 
-using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+constexpr float kMaskValue = (float)(-0.7 * (double)FLT_MAX);
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ------------------------------------------------ fp32 kernels (first design)
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kMaskValue = (float)(-0.7 * (double)FLT_MAX);
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// Row padding of the fp32 shared tiles: an odd row stride, so lanes reading
+// down a column hit distinct banks.
+constexpr int kPad = 1;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -91,76 +110,35 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Row padding of the shared tiles, in elements. bf16 rows keep WMMA's 16-byte
-// leading dimension and shift consecutive rows by 4 banks; fp32 rows get an
-// odd stride so that lanes reading down a column hit distinct banks.
-template <typename T> struct Pad;
-template <> struct Pad<__nv_bfloat16> { static constexpr int io = 8, acc = 4; };
-template <> struct Pad<float> { static constexpr int io = 1, acc = 1; };
-
 __host__ __device__ inline size_t region(size_t bytes) { return (bytes + 31) / 32 * 32; }
 
 // Hands out 32-byte aligned pieces of the block's dynamic shared memory.
 struct Carver {
   unsigned char* p;
-  template <typename U> __device__ U* take(int n) {
-    U* out = reinterpret_cast<U*>(p);
-    p += region((size_t)n * sizeof(U));
+  __device__ float* take(int n) {
+    float* out = reinterpret_cast<float*>(p);
+    p += region((size_t)n * sizeof(float));
     return out;
   }
 };
 
 // C[M][N] (+)= sum_k A(m, k) * B(k, n), every operand in shared memory.
-//   LA row_major: A(m, k) = A[m * lda + k];  col_major: A[k * lda + m]
-//   LB row_major: B(k, n) = B[k * ldb + n];  col_major: B[n * ldb + k]
-// M, N and K are multiples of 16. bf16: one 16x16 output fragment per warp at
-// a time, fp32 accumulation on the tensor cores.
-template <typename LA, typename LB>
-__device__ __forceinline__ void tile_mm(float* C, int ldc, const __nv_bfloat16* A, int lda,
-                                        const __nv_bfloat16* B, int ldb, int M, int N, int K,
-                                        bool accumulate) {
-  constexpr bool a_row = std::is_same<LA, wmma::row_major>::value;
-  constexpr bool b_row = std::is_same<LB, wmma::row_major>::value;
-  const int warp = threadIdx.x >> 5;
-  const int nt = N / 16, tiles = (M / 16) * nt;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int tm = t / nt, tn = t - tm * nt;
-    float* c = C + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate) {
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.f);
-    }
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> b;
-      const __nv_bfloat16* ap = a_row ? A + tm * 16 * lda + k0 : A + k0 * lda + tm * 16;
-      const __nv_bfloat16* bp = b_row ? B + k0 * ldb + tn * 16 : B + tn * 16 * ldb + k0;
-      wmma::load_matrix_sync(a, ap, lda);
-      wmma::load_matrix_sync(b, bp, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// fp32: each thread owns four rows of one output column; fused multiply-adds.
-template <typename LA, typename LB>
+//   kARow: A(m, k) = A[m * lda + k], else A[k * lda + m]
+//   kBRow: B(k, n) = B[k * ldb + n], else B[n * ldb + k]
+// Each thread owns four rows of one output column; fused multiply-adds.
+template <bool kARow, bool kBRow>
 __device__ __forceinline__ void tile_mm(float* C, int ldc, const float* A, int lda,
                                         const float* B, int ldb, int M, int N, int K,
                                         bool accumulate) {
-  constexpr bool a_row = std::is_same<LA, wmma::row_major>::value;
-  constexpr bool b_row = std::is_same<LB, wmma::row_major>::value;
   const int groups = (M / 4) * N;
   for (int idx = threadIdx.x; idx < groups; idx += kThreads) {
     const int mb = idx / N, n = idx - mb * N, m0 = mb * 4;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int k = 0; k < K; ++k) {
-      const float bv = b_row ? B[k * ldb + n] : B[n * ldb + k];
+      const float bv = kBRow ? B[k * ldb + n] : B[n * ldb + k];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float av = a_row ? A[(m0 + i) * lda + k] : A[k * lda + m0 + i];
+        const float av = kARow ? A[(m0 + i) * lda + k] : A[k * lda + m0 + i];
         acc[i] = fmaf(av, bv, acc[i]);
       }
     }
@@ -174,29 +152,12 @@ __device__ __forceinline__ void tile_mm(float* C, int ldc, const float* A, int l
 
 // Rows [row0, row0 + tile) of one (batch, head) of x[B, S, H, D] into
 // dst[tile][ld]: rows from `rows` on and columns from D up to Dp are zero.
-// `vec` (bf16 only): D, the strides and the base address are multiples of 8
-// elements, so a thread moves 16 bytes at a time.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int ld, const T* src, long long row_stride,
-                                      int row0, int rows, int tile, int D, int Dp, int vec) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (vec) {
-      const int chunks = Dp / 8;
-      for (int i = threadIdx.x; i < tile * chunks; i += kThreads) {
-        const int r = i / chunks, c = (i - r * chunks) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + r < rows && c < D)
-          val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-      }
-      return;
-    }
-  }
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src, long long row_stride,
+                                      int row0, int rows, int tile, int D, int Dp) {
   for (int i = threadIdx.x; i < tile * Dp; i += kThreads) {
     const int r = i / Dp, d = i - r * Dp;
-    dst[r * ld + d] = (row0 + r < rows && d < D)
-                          ? src[(long long)(row0 + r) * row_stride + d]
-                          : from_f32<T>(0.f);
+    dst[r * ld + d] = (row0 + r < rows && d < D) ? src[(long long)(row0 + r) * row_stride + d]
+                                                 : 0.f;
   }
 }
 
@@ -217,35 +178,33 @@ struct Strides {
   long long b, s, h;
 };
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------------------------- forward, fp32
 // grid (q tiles, H, B). o is contiguous [B, Sq, H, D], lse fp32 [B, H, Sq].
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int D,
-                 int Dp, int tile, Strides qs, Strides ks, Strides vs, float scale, int causal,
-                 int q_offset, int vec) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Sk, int H, int D, int Dp, int tile, Strides qs, Strides ks,
+                 Strides vs, float scale, int causal, int q_offset) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldt = Dp + Pad<T>::io, lds = tile + Pad<T>::acc;
-  const int ldp = tile + Pad<T>::io, ldo = Dp + Pad<T>::acc;
+  const int ldt = Dp + kPad, lds = tile + kPad;
   Carver cv{smem_raw};
-  T* Qs = cv.take<T>(tile * ldt);
-  T* Ks = cv.take<T>(tile * ldt);
-  T* Vs = cv.take<T>(tile * ldt);
-  T* Ps = cv.take<T>(tile * ldp);
-  float* Ss = cv.take<float>(tile * lds);
-  float* Os = cv.take<float>(tile * ldo);
-  float* ms = cv.take<float>(tile);
-  float* ls = cv.take<float>(tile);
+  float* Qs = cv.take(tile * ldt);
+  float* Ks = cv.take(tile * ldt);
+  float* Vs = cv.take(tile * ldt);
+  float* Ps = cv.take(tile * lds);
+  float* Ss = cv.take(tile * lds);
+  float* Os = cv.take(tile * ldt);
+  float* ms = cv.take(tile);
+  float* ls = cv.take(tile);
 
   const int b = blockIdx.z, h = blockIdx.y, r0 = (int)blockIdx.x * tile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
 
-  stage(Qs, ldt, qb, qs.s, r0, Sq, tile, D, Dp, vec);
-  for (int i = tid; i < tile * ldo; i += kThreads) Os[i] = 0.f;
+  stage(Qs, ldt, qb, qs.s, r0, Sq, tile, D, Dp);
+  for (int i = tid; i < tile * ldt; i += kThreads) Os[i] = 0.f;
   for (int i = tid; i < tile; i += kThreads) {
     ms[i] = -INFINITY;
     ls[i] = 0.f;
@@ -262,14 +221,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int j = 0; j < hi; ++j) {
     const int c0 = j * tile;
     __syncthreads();
-    stage(Ks, ldt, kb, ks.s, c0, Sk, tile, D, Dp, vec);
-    stage(Vs, ldt, vb, vs.s, c0, Sk, tile, D, Dp, vec);
+    stage(Ks, ldt, kb, ks.s, c0, Sk, tile, D, Dp);
+    stage(Vs, ldt, vb, vs.s, c0, Sk, tile, D, Dp);
     __syncthreads();
-    tile_mm<wmma::row_major, wmma::col_major>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
+    tile_mm<true, false>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
     __syncthreads();
 
-    // online softmax, one warp per row: new max, rescale l and the output
-    // row, p rounded to the io type for the product
+    // online softmax, one warp per row: new max, rescale l and the output row
     for (int r = warp; r < tile; r += kWarps) {
       const int row = r0 + r + q_offset;
       float* srow = Ss + r * lds;
@@ -282,23 +240,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       mx = warp_max(mx);
       const float m_prev = ms[r], m_next = fmaxf(m_prev, mx);
       const float alpha = expf(m_prev - m_next);
-      T* prow = Ps + r * ldp;
+      float* prow = Ps + r * lds;
       float sum = 0.f;
       for (int c = lane; c < tile; c += 32) {
         const float p = expf(srow[c] - m_next);
         sum += p;
-        prow[c] = from_f32<T>(p);
+        prow[c] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
         ms[r] = m_next;
         ls[r] = alpha * ls[r] + sum;
       }
-      float* orow = Os + r * ldo;
+      float* orow = Os + r * ldt;
       for (int d = lane; d < Dp; d += 32) orow[d] *= alpha;
     }
     __syncthreads();
-    tile_mm<wmma::row_major, wmma::row_major>(Os, ldo, Ps, ldp, Vs, ldt, tile, Dp, tile, true);
+    tile_mm<true, true>(Os, ldt, Ps, lds, Vs, ldt, tile, Dp, tile, true);
   }
   __syncthreads();
 
@@ -307,35 +265,202 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (row >= Sq) continue;
     const float l = ls[r];
     const float l_inv = l == 0.f ? 1.f : 1.f / l;
-    T* orow = o + (((long long)b * Sq + row) * H + h) * D;
-    for (int d = lane; d < D; d += 32) orow[d] = from_f32<T>(Os[r * ldo + d] * l_inv);
+    float* orow = o + (((long long)b * Sq + row) * H + h) * D;
+    for (int d = lane; d < D; d += 32) orow[d] = Os[r * ldt + d] * l_inv;
     if (lane == 0) lse[((long long)b * H + h) * Sq + row] = l == 0.f ? 0.f : ms[r] + logf(l);
   }
 }
 
-// ------------------------------------------------------ forward, bf16 (mma)
+// ------------------------------------------------------- backward dq, fp32
+// grid (q tiles, H, B). lse and delta are fp32 [B, H, Sq]; dq is contiguous
+// [B, Sq, H, D]. No q_offset: the caller takes another route for it.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int Sq, int Sk, int H, int D, int Dp, int tile,
+                    Strides qs, Strides ks, Strides vs, Strides gs, float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int ldt = Dp + kPad, lds = tile + kPad;
+  Carver cv{smem_raw};
+  float* Qs = cv.take(tile * ldt);
+  float* Gs = cv.take(tile * ldt);       // dO
+  float* Ks = cv.take(tile * ldt);
+  float* Vs = cv.take(tile * ldt);
+  float* dSs = cv.take(tile * lds);
+  float* Ss = cv.take(tile * lds);
+  float* dPs = cv.take(tile * lds);
+  float* dQs = cv.take(tile * ldt);
+  float* lses = cv.take(tile);
+  float* deltas = cv.take(tile);
 
-constexpr int kFwdThreads = 128;      // 4 warps, 16 q rows each
-constexpr int kFwdQTile = 64;
-constexpr int kFwdStages = 2;         // cp.async ring depth
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+  const int b = blockIdx.z, h = blockIdx.y, r0 = (int)blockIdx.x * tile;
+  const int tid = threadIdx.x;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const long long row_base = ((long long)b * H + h) * Sq;
+
+  stage(Qs, ldt, q + b * qs.b + h * qs.h, qs.s, r0, Sq, tile, D, Dp);
+  stage(Gs, ldt, dout + b * gs.b + h * gs.h, gs.s, r0, Sq, tile, D, Dp);
+  stage_rows(lses, lse + row_base, r0, Sq, tile);
+  stage_rows(deltas, delta + row_base, r0, Sq, tile);
+  for (int i = tid; i < tile * ldt; i += kThreads) dQs[i] = 0.f;
+
+  const int kv_tiles = (Sk + tile - 1) / tile;
+  const int hi = causal ? min(kv_tiles, (int)blockIdx.x + 1) : kv_tiles;
+
+  for (int j = 0; j < hi; ++j) {
+    const int c0 = j * tile;
+    __syncthreads();
+    stage(Ks, ldt, kb, ks.s, c0, Sk, tile, D, Dp);
+    stage(Vs, ldt, vb, vs.s, c0, Sk, tile, D, Dp);
+    __syncthreads();
+    tile_mm<true, false>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
+    tile_mm<true, false>(dPs, lds, Gs, ldt, Vs, ldt, tile, tile, Dp, false);
+    __syncthreads();
+    for (int i = tid; i < tile * tile; i += kThreads) {
+      const int r = i / tile, c = i - r * tile;
+      const float s = masked_score(Ss[r * lds + c], scale, causal, r0 + r, c0 + c, Sk);
+      const float p = expf(s - lses[r]);
+      dSs[r * lds + c] = p * (dPs[r * lds + c] - deltas[r]);
+    }
+    __syncthreads();
+    tile_mm<true, true>(dQs, ldt, dSs, lds, Ks, ldt, tile, Dp, tile, true);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < tile * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    if (r0 + r < Sq) dq[(((long long)b * Sq + r0 + r) * H + h) * D + d] = dQs[r * ldt + d] * scale;
+  }
+}
+
+// -------------------------------------------------- backward dk/dv, fp32
+// grid (kv tiles, H, B). dk, dv are contiguous [B, Sk, H, D]. With causal
+// masking the q tiles above this kv tile's diagonal tile are skipped (tiles
+// are square and there is no q_offset, so the diagonal tile's index is the kv
+// tile's).
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+                     int D, int Dp, int tile, Strides qs, Strides ks, Strides vs, Strides gs,
+                     float scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int ldt = Dp + kPad, lds = tile + kPad;
+  Carver cv{smem_raw};
+  float* Ks = cv.take(tile * ldt);
+  float* Vs = cv.take(tile * ldt);
+  float* Qs = cv.take(tile * ldt);
+  float* Gs = cv.take(tile * ldt);       // dO
+  float* Ps = cv.take(tile * lds);
+  float* dSs = cv.take(tile * lds);
+  float* Ss = cv.take(tile * lds);
+  float* dPs = cv.take(tile * lds);
+  float* dKs = cv.take(tile * ldt);
+  float* dVs = cv.take(tile * ldt);
+  float* lses = cv.take(tile);
+  float* deltas = cv.take(tile);
+
+  const int b = blockIdx.z, h = blockIdx.y, c0 = (int)blockIdx.x * tile;
+  const int tid = threadIdx.x;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* gb = dout + b * gs.b + h * gs.h;
+  const long long row_base = ((long long)b * H + h) * Sq;
+
+  stage(Ks, ldt, k + b * ks.b + h * ks.h, ks.s, c0, Sk, tile, D, Dp);
+  stage(Vs, ldt, v + b * vs.b + h * vs.h, vs.s, c0, Sk, tile, D, Dp);
+  for (int i = tid; i < tile * ldt; i += kThreads) {
+    dKs[i] = 0.f;
+    dVs[i] = 0.f;
+  }
+
+  const int q_tiles = (Sq + tile - 1) / tile;
+  const int lo = causal ? (int)blockIdx.x : 0;
+
+  for (int qi = lo; qi < q_tiles; ++qi) {
+    const int r0 = qi * tile;
+    __syncthreads();
+    stage(Qs, ldt, qb, qs.s, r0, Sq, tile, D, Dp);
+    stage(Gs, ldt, gb, gs.s, r0, Sq, tile, D, Dp);
+    stage_rows(lses, lse + row_base, r0, Sq, tile);
+    stage_rows(deltas, delta + row_base, r0, Sq, tile);
+    __syncthreads();
+    tile_mm<true, false>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
+    tile_mm<true, false>(dPs, lds, Gs, ldt, Vs, ldt, tile, tile, Dp, false);
+    __syncthreads();
+    for (int i = tid; i < tile * tile; i += kThreads) {
+      const int r = i / tile, c = i - r * tile;
+      const float s = masked_score(Ss[r * lds + c], scale, causal, r0 + r, c0 + c, Sk);
+      const float p = expf(s - lses[r]);
+      Ps[r * lds + c] = p;
+      dSs[r * lds + c] = p * (dPs[r * lds + c] - deltas[r]);
+    }
+    __syncthreads();
+    // dV[c][d] += sum_r P[r][c] dO[r][d];  dK[c][d] += sum_r dS[r][c] Q[r][d]
+    tile_mm<false, true>(dVs, ldt, Ps, lds, Gs, ldt, tile, Dp, tile, true);
+    tile_mm<false, true>(dKs, ldt, dSs, lds, Qs, ldt, tile, Dp, tile, true);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < tile * D; i += kThreads) {
+    const int c = i / D, d = i - c * D;
+    if (c0 + c < Sk) {
+      const long long at = (((long long)b * Sk + c0 + c) * H + h) * D + d;
+      dk[at] = dKs[c * ldt + d] * scale;
+      dv[at] = dVs[c * ldt + d];
+    }
+  }
+}
+
+// ------------------------------------------------ bf16 kernels (mma.sync)
+
+constexpr int kMmaThreads = 128;      // 4 warps, 16 rows each
+constexpr int kMmaRows = 64;          // rows a block owns: q rows (forward, dq), kv rows (dk/dv)
+constexpr int kStages = 2;            // cp.async ring depth
 
 // kv tile rows of the bf16 forward by padded head dim: above 128 the output
 // accumulator (Dp / 2 fp32 registers a thread) leaves room for half the
 // score tile only.
 __host__ __device__ constexpr int fwd_kv_tile(int Dp) { return Dp <= 128 ? 64 : 32; }
+// kv tile rows of the bf16 dq kernel: the same budget (the dQ accumulator).
+__host__ __device__ constexpr int dq_kv_tile(int Dp) { return Dp <= 128 ? 64 : 32; }
+// q tile rows of the bf16 dk/dv kernel: dK and dV take Dp registers a thread
+// (up to 128) and S^T and dP^T q tile / 2 each.
+__host__ __device__ constexpr int dkv_q_tile(int Dp) { return Dp <= 64 ? 64 : 32; }
+// Warps that share 16 kv rows of the dk/dv kernel, each owning Dp / split
+// columns of dK and dV: above Dp = 128 one warp's Dp registers would not fit.
+__host__ __device__ constexpr int dkv_split(int Dp) { return Dp <= 128 ? 1 : 2; }
 
+// Row i (0: g, 1: g + 8) of a warp's 16-row block of C fragments acc[N8][4],
+// times `mul`, rounded to bf16 into columns [col0, col0 + 8 * N8) of `row`,
+// those from D on dropped.
+template <int N8>
+__device__ __forceinline__ void store_row(bf16* row, const float (&acc)[N8][4], int i,
+                                          float mul, int col0, int D, int t) {
+#pragma unroll
+  for (int n = 0; n < N8; ++n) {
+    const int col = col0 + n * 8 + 2 * t;
+    const float v0 = acc[n][2 * i] * mul, v1 = acc[n][2 * i + 1] * mul;
+    if ((D & 1) == 0 && col + 1 < D) {
+      *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      if (col < D) row[col] = __float2bfloat16_rn(v0);
+      if (col + 1 < D) row[col + 1] = __float2bfloat16_rn(v1);
+    }
+  }
+}
+
+// ------------------------------------------------------ forward, bf16
 // grid (H, B, q tiles). o is contiguous [B, Sq, H, D], lse fp32 [B, H, Sq].
 // `scale_log2` is scale * log2(e) in fp32.
 template <int Dp>
-__global__ void __launch_bounds__(kFwdThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int Sq, int Sk, int H, int D, Strides qs,
-                      Strides ks, Strides vs, float scale_log2, int causal, int q_offset,
-                      int vec) {
-  using bf16 = __nv_bfloat16;
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                      int Sq, int Sk, int H, int D, Strides qs, Strides ks, Strides vs,
+                      float scale_log2, int causal, int q_offset, int vec) {
   constexpr int KT = fwd_kv_tile(Dp);
   constexpr int ld = Dp + sm90::kRowPad;
   constexpr int NS = KT / 8;             // n8 tiles of a score row block
@@ -345,11 +470,11 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   constexpr bool kQRegs = Dp <= 128;     // Q fragments held in registers
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kFwdQTile * ld;        // kFwdStages stages of KT rows
-  bf16* Vs = Ks + kFwdStages * KT * ld;
+  bf16* Ks = Qs + kMmaRows * ld;         // kStages stages of KT rows
+  bf16* Vs = Ks + kStages * KT * ld;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int r0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kFwdQTile;   // heaviest first
+  const int r0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kMmaRows;   // heaviest first
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wrow0 = warp * 16;
@@ -360,20 +485,20 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int kv_tiles = (Sk + KT - 1) / KT;
   int hi = kv_tiles;
   if (causal) {
-    const int last_row = r0 + kFwdQTile - 1 + q_offset;
+    const int last_row = r0 + kMmaRows - 1 + q_offset;
     hi = last_row < 0 ? 0 : min(kv_tiles, last_row / KT + 1);
   }
 
-  // the ring: kv tile j lives in stage j % kFwdStages, issued kFwdStages - 1
-  // tiles ahead; one group per tile (Q rides with tile 0)
+  // the ring: kv tile j lives in stage j % kStages, issued kStages - 1 tiles
+  // ahead; one group per tile (Q rides with tile 0)
   auto stage_kv = [&](int j) {
-    const int at = (j % kFwdStages) * KT * ld;
-    sm90::stage_tile<Dp, kFwdThreads>(Ks + at, kb, ks.s, j * KT, Sk, KT, D, vec);
-    sm90::stage_tile<Dp, kFwdThreads>(Vs + at, vb, vs.s, j * KT, Sk, KT, D, vec);
+    const int at = (j % kStages) * KT * ld;
+    sm90::stage_tile<Dp, kMmaThreads>(Ks + at, kb, ks.s, j * KT, Sk, KT, D, vec);
+    sm90::stage_tile<Dp, kMmaThreads>(Vs + at, vb, vs.s, j * KT, Sk, KT, D, vec);
   };
-  sm90::stage_tile<Dp, kFwdThreads>(Qs, qb, qs.s, r0, Sq, kFwdQTile, D, vec);
+  sm90::stage_tile<Dp, kMmaThreads>(Qs, qb, qs.s, r0, Sq, kMmaRows, D, vec);
 #pragma unroll
-  for (int i = 0; i < kFwdStages - 1; ++i) {
+  for (int i = 0; i < kStages - 1; ++i) {
     if (i < hi) stage_kv(i);
     sm90::cp_async_commit();
   }
@@ -387,12 +512,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   uint32_t qf[kQRegs ? KD : 1][4];
 
   for (int j = 0; j < hi; ++j) {
-    sm90::cp_async_wait<kFwdStages - 2>();
+    sm90::cp_async_wait<kStages - 2>();
     __syncthreads();     // tile j visible; every warp is past tile j - 1
-    if (j + kFwdStages - 1 < hi) stage_kv(j + kFwdStages - 1);
+    if (j + kStages - 1 < hi) stage_kv(j + kStages - 1);
     sm90::cp_async_commit();
-    const bf16* Kt = Ks + (j % kFwdStages) * KT * ld;
-    const bf16* Vt = Vs + (j % kFwdStages) * KT * ld;
+    const bf16* Kt = Ks + (j % kStages) * KT * ld;
+    const bf16* Vt = Vs + (j % kStages) * KT * ld;
     if constexpr (kQRegs) {
       if (j == 0) {
 #pragma unroll
@@ -485,168 +610,352 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const int row = r0 + wrow0 + g + 8 * i;
     if (row >= Sq) continue;
     const float l_inv = l[i] == 0.f ? 1.f : 1.f / l[i];
-    bf16* orow = o + (((long long)b * Sq + row) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const int col = n * 8 + 2 * t;
-      const float v0 = acc[n][2 * i] * l_inv, v1 = acc[n][2 * i + 1] * l_inv;
-      if ((D & 1) == 0 && col + 1 < D) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
-      } else {
-        if (col < D) orow[col] = __float2bfloat16_rn(v0);
-        if (col + 1 < D) orow[col + 1] = __float2bfloat16_rn(v1);
-      }
-    }
+    store_row(o + (((long long)b * Sq + row) * H + h) * D, acc, i, l_inv, 0, D, t);
     if (t == 0)
       lse[((long long)b * H + h) * Sq + row] =
           l[i] == 0.f ? 0.f : __fadd_rn(__fmul_rn(m[i], kLn2), logf(l[i]));
   }
 }
 
-// ------------------------------------------------------------ backward: dq
-// grid (q tiles, H, B). lse and delta are fp32 [B, H, Sq]; dq is contiguous
+// ------------------------------------------------------ backward dq, bf16
+// grid (H, B, q tiles). lse and delta are fp32 [B, H, Sq]; dq is contiguous
 // [B, Sq, H, D]. No q_offset: the caller takes another route for it.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
-                    int D, int Dp, int tile, Strides qs, Strides ks, Strides vs, Strides gs,
-                    float scale, int causal, int vec) {
+template <int Dp>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int Sq, int Sk, int H, int D, Strides qs,
+                         Strides ks, Strides vs, Strides gs, float scale, float scale_log2,
+                         int causal, int vec) {
+  constexpr int KT = dq_kv_tile(Dp);
+  constexpr int ld = Dp + sm90::kRowPad;
+  constexpr int NS = KT / 8;             // n8 tiles of a score row block
+  constexpr int ND = Dp / 8;             // n8 tiles of the dQ row block
+  constexpr int KD = Dp / 16;            // k16 steps of Q K^T and dO V^T
+  constexpr int KS = KT / 16;            // k16 steps of dS K
+  constexpr bool kQRegs = Dp <= 128;     // Q fragments held in registers
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldt = Dp + Pad<T>::io, lds = tile + Pad<T>::acc;
-  const int ldp = tile + Pad<T>::io, ldo = Dp + Pad<T>::acc;
-  Carver cv{smem_raw};
-  T* Qs = cv.take<T>(tile * ldt);
-  T* Gs = cv.take<T>(tile * ldt);       // dO
-  T* Ks = cv.take<T>(tile * ldt);
-  T* Vs = cv.take<T>(tile * ldt);
-  T* dSs = cv.take<T>(tile * ldp);
-  float* Ss = cv.take<float>(tile * lds);
-  float* dPs = cv.take<float>(tile * lds);
-  float* dQs = cv.take<float>(tile * ldo);
-  float* lses = cv.take<float>(tile);
-  float* deltas = cv.take<float>(tile);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + kMmaRows * ld;         // dO
+  bf16* Ks = Gs + kMmaRows * ld;         // kStages stages of KT rows
+  bf16* Vs = Ks + kStages * KT * ld;
 
-  const int b = blockIdx.z, h = blockIdx.y, r0 = (int)blockIdx.x * tile;
-  const int tid = threadIdx.x;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int r0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kMmaRows;   // heaviest first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = warp * 16;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+
+  const int kv_tiles = (Sk + KT - 1) / KT;
+  const int hi = causal ? min(kv_tiles, (r0 + kMmaRows - 1) / KT + 1) : kv_tiles;
+
+  auto stage_kv = [&](int j) {
+    const int at = (j % kStages) * KT * ld;
+    sm90::stage_tile<Dp, kMmaThreads>(Ks + at, kb, ks.s, j * KT, Sk, KT, D, vec);
+    sm90::stage_tile<Dp, kMmaThreads>(Vs + at, vb, vs.s, j * KT, Sk, KT, D, vec);
+  };
+  sm90::stage_tile<Dp, kMmaThreads>(Qs, q + b * qs.b + h * qs.h, qs.s, r0, Sq, kMmaRows, D,
+                                    vec);
+  sm90::stage_tile<Dp, kMmaThreads>(Gs, dout + b * gs.b + h * gs.h, gs.s, r0, Sq, kMmaRows, D,
+                                    vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < hi) stage_kv(i);
+    sm90::cp_async_commit();
+  }
+
+  // this thread's two rows (g and g + 8 of the warp's 16): lse in base 2 and
+  // delta (rows past Sq meet zero q and dO rows, so their ds is 0)
   const long long row_base = ((long long)b * H + h) * Sq;
-
-  stage(Qs, ldt, q + b * qs.b + h * qs.h, qs.s, r0, Sq, tile, D, Dp, vec);
-  stage(Gs, ldt, dout + b * gs.b + h * gs.h, gs.s, r0, Sq, tile, D, Dp, vec);
-  stage_rows(lses, lse + row_base, r0, Sq, tile);
-  stage_rows(deltas, delta + row_base, r0, Sq, tile);
-  for (int i = tid; i < tile * ldo; i += kThreads) dQs[i] = 0.f;
-
-  const int kv_tiles = (Sk + tile - 1) / tile;
-  const int hi = causal ? min(kv_tiles, (int)blockIdx.x + 1) : kv_tiles;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wrow0 + g + 8 * i;
+    lse2[i] = row < Sq ? __fmul_rn(lse[row_base + row], kLog2e) : 0.f;
+    dlt[i] = row < Sq ? delta[row_base + row] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  uint32_t qf[kQRegs ? KD : 1][4];
 
   for (int j = 0; j < hi; ++j) {
-    const int c0 = j * tile;
-    __syncthreads();
-    stage(Ks, ldt, kb, ks.s, c0, Sk, tile, D, Dp, vec);
-    stage(Vs, ldt, vb, vs.s, c0, Sk, tile, D, Dp, vec);
-    __syncthreads();
-    tile_mm<wmma::row_major, wmma::col_major>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
-    tile_mm<wmma::row_major, wmma::col_major>(dPs, lds, Gs, ldt, Vs, ldt, tile, tile, Dp, false);
-    __syncthreads();
-    for (int i = tid; i < tile * tile; i += kThreads) {
-      const int r = i / tile, c = i - r * tile;
-      const float s = masked_score(Ss[r * lds + c], scale, causal, r0 + r, c0 + c, Sk);
-      const float p = expf(s - lses[r]);
-      dSs[r * ldp + c] = from_f32<T>(p * (dPs[r * lds + c] - deltas[r]));
+    sm90::cp_async_wait<kStages - 2>();
+    __syncthreads();     // tile j visible; every warp is past tile j - 1
+    if (j + kStages - 1 < hi) stage_kv(j + kStages - 1);
+    sm90::cp_async_commit();
+    const bf16* Kt = Ks + (j % kStages) * KT * ld;
+    const bf16* Vt = Vs + (j % kStages) * KT * ld;
+    if constexpr (kQRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) sm90::load_a(qf[kk], Qs, ld, wrow0, kk * 16, lane);
+      }
     }
-    __syncthreads();
-    tile_mm<wmma::row_major, wmma::row_major>(dQs, ldo, dSs, ldp, Ks, ldt, tile, Dp, tile, true);
-  }
-  __syncthreads();
 
-  for (int i = tid; i < tile * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    if (r0 + r < Sq)
-      dq[(((long long)b * Sq + r0 + r) * H + h) * D + d] = from_f32<T>(dQs[r * ldo + d] * scale);
+    // S = Q K^T and dP = dO V^T
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+        a[0] = qf[kk][0], a[1] = qf[kk][1], a[2] = qf[kk][2], a[3] = qf[kk][3];
+      } else {
+        sm90::load_a(a, Qs, ld, wrow0, kk * 16, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kf[4];
+        sm90::load_b_nk(kf, Kt, ld, n * 8, kk * 16, lane);
+        sm90::mma_bf16(s[n], a, kf[0], kf[1]);
+        sm90::mma_bf16(s[n + 1], a, kf[2], kf[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      sm90::load_a(a, Gs, ld, wrow0, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t vf[4];
+        sm90::load_b_nk(vf, Vt, ld, n * 8, kk * 16, lane);
+        sm90::mma_bf16(dp[n], a, vf[0], vf[1]);
+        sm90::mma_bf16(dp[n + 1], a, vf[2], vf[3]);
+      }
+    }
+
+    // scores in base 2, masked only where the tile crosses the diagonal or
+    // the keys' end; then p and ds = p (dp - delta) in place of dp
+    const int c0 = j * KT;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale_log2);
+    if (c0 + KT > Sk || (causal && c0 + KT - 1 > r0 + wrow0)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + n * 8 + 2 * t + (e & 1);
+          const int row = r0 + wrow0 + g + (e >> 1) * 8;
+          if ((causal && col > row) || col >= Sk) s[n][e] = kMaskValue;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(__fsub_rn(s[n][e], lse2[e >> 1]));
+        dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], dlt[e >> 1]));
+      }
+
+    // dQ += dS K, dS rounded to bf16 on its way to the A fragment
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      sm90::c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        uint32_t kf[4];
+        sm90::load_b_kn(kf, Kt, ld, kk * 16, n * 8, lane);
+        sm90::mma_bf16(acc[n], a, kf[0], kf[1]);
+        sm90::mma_bf16(acc[n + 1], a, kf[2], kf[3]);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wrow0 + g + 8 * i;
+    if (row < Sq) store_row(dq + (((long long)b * Sq + row) * H + h) * D, acc, i, scale, 0, D, t);
   }
 }
 
-// ------------------------------------------------------- backward: dk and dv
-// grid (kv tiles, H, B). dk, dv are contiguous [B, Sk, H, D]. With causal
-// masking the q tiles above this kv tile's diagonal tile are skipped (tiles
-// are square and there is no q_offset, so the diagonal tile's index is the kv
-// tile's).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Sq, int Sk, int H, int D, int Dp, int tile, Strides qs, Strides ks,
-                     Strides vs, Strides gs, float scale, int causal, int vec) {
+// -------------------------------------------------- backward dk/dv, bf16
+// grid (H, B, kv tiles). dk, dv are contiguous [B, Sk, H, D]. Causal: the
+// first q tile is the one whose last row reaches the kv tile's first column.
+template <int Dp>
+__global__ void __launch_bounds__(kMmaThreads * dkv_split(Dp))
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+                          int D, Strides qs, Strides ks, Strides vs, Strides gs, float scale,
+                          float scale_log2, int causal, int vec) {
+  constexpr int kSplit = dkv_split(Dp);
+  constexpr int kThreadsHere = kMmaThreads * kSplit;
+  constexpr int QT = dkv_q_tile(Dp);
+  constexpr int ld = Dp + sm90::kRowPad;
+  constexpr int NQ = QT / 8;             // n8 tiles of a transposed score row block
+  constexpr int NO = Dp / 8 / kSplit;    // n8 tiles of dK and dV a warp owns
+  constexpr int KD = Dp / 16;            // k16 steps of K Q^T and V dO^T
+  constexpr int KQ = QT / 16;            // k16 steps of P^T dO and dS^T Q
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldt = Dp + Pad<T>::io, lds = tile + Pad<T>::acc;
-  const int ldp = tile + Pad<T>::io, ldo = Dp + Pad<T>::acc;
-  Carver cv{smem_raw};
-  T* Ks = cv.take<T>(tile * ldt);
-  T* Vs = cv.take<T>(tile * ldt);
-  T* Qs = cv.take<T>(tile * ldt);
-  T* Gs = cv.take<T>(tile * ldt);       // dO
-  T* Ps = cv.take<T>(tile * ldp);
-  T* dSs = cv.take<T>(tile * ldp);
-  float* Ss = cv.take<float>(tile * lds);
-  float* dPs = cv.take<float>(tile * lds);
-  float* dKs = cv.take<float>(tile * ldo);
-  float* dVs = cv.take<float>(tile * ldo);
-  float* lses = cv.take<float>(tile);
-  float* deltas = cv.take<float>(tile);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kMmaRows * ld;
+  bf16* Qs = Vs + kMmaRows * ld;         // kStages stages of QT rows
+  bf16* Gs = Qs + kStages * QT * ld;     // dO, the same
+  float* Ls = reinterpret_cast<float*>(Gs + kStages * QT * ld);   // lse, kStages x QT
+  float* Ds = Ls + kStages * QT;                                  // delta
 
-  const int b = blockIdx.z, h = blockIdx.y, c0 = (int)blockIdx.x * tile;
-  const int tid = threadIdx.x;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* gb = dout + b * gs.b + h * gs.h;
+  const int h = blockIdx.x, b = blockIdx.y, c0 = (int)blockIdx.z * kMmaRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = (warp % 4) * 16;                 // the warp's kv rows
+  const int col0 = (warp / 4) * (Dp / kSplit);       // its columns of dK and dV
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* gb = dout + b * gs.b + h * gs.h;
   const long long row_base = ((long long)b * H + h) * Sq;
 
-  stage(Ks, ldt, k + b * ks.b + h * ks.h, ks.s, c0, Sk, tile, D, Dp, vec);
-  stage(Vs, ldt, v + b * vs.b + h * vs.h, vs.s, c0, Sk, tile, D, Dp, vec);
-  for (int i = tid; i < tile * ldo; i += kThreads) {
-    dKs[i] = 0.f;
-    dVs[i] = 0.f;
+  const int q_tiles = (Sq + QT - 1) / QT;
+  const int lo = causal ? min(q_tiles, c0 / QT) : 0;
+
+  // the ring: q tile i lives in stage (i - lo) % kStages with its lse and
+  // delta; one group per tile (K and V ride with the first)
+  auto stage_q = [&](int i) {
+    const int st = (i - lo) % kStages, r0 = i * QT;
+    sm90::stage_tile<Dp, kThreadsHere>(Qs + st * QT * ld, qb, qs.s, r0, Sq, QT, D, vec);
+    sm90::stage_tile<Dp, kThreadsHere>(Gs + st * QT * ld, gb, gs.s, r0, Sq, QT, D, vec);
+    for (int x = threadIdx.x; x < 2 * QT; x += kThreadsHere) {
+      const int r = x % QT;
+      const bool ok = r0 + r < Sq;
+      const float* src = (x < QT ? lse : delta) + row_base + (ok ? r0 + r : 0);
+      sm90::cp_async_4((x < QT ? Ls : Ds) + st * QT + r, src, ok);
+    }
+  };
+  sm90::stage_tile<Dp, kThreadsHere>(Ks, k + b * ks.b + h * ks.h, ks.s, c0, Sk, kMmaRows, D, vec);
+  sm90::stage_tile<Dp, kThreadsHere>(Vs, v + b * vs.b + h * vs.h, vs.s, c0, Sk, kMmaRows, D, vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (lo + i < q_tiles) stage_q(lo + i);
+    sm90::cp_async_commit();
   }
 
-  const int q_tiles = (Sq + tile - 1) / tile;
-  const int lo = causal ? (int)blockIdx.x : 0;
-
-  for (int qi = lo; qi < q_tiles; ++qi) {
-    const int r0 = qi * tile;
-    __syncthreads();
-    stage(Qs, ldt, qb, qs.s, r0, Sq, tile, D, Dp, vec);
-    stage(Gs, ldt, gb, gs.s, r0, Sq, tile, D, Dp, vec);
-    stage_rows(lses, lse + row_base, r0, Sq, tile);
-    stage_rows(deltas, delta + row_base, r0, Sq, tile);
-    __syncthreads();
-    tile_mm<wmma::row_major, wmma::col_major>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
-    tile_mm<wmma::row_major, wmma::col_major>(dPs, lds, Gs, ldt, Vs, ldt, tile, tile, Dp, false);
-    __syncthreads();
-    for (int i = tid; i < tile * tile; i += kThreads) {
-      const int r = i / tile, c = i - r * tile;
-      const float s = masked_score(Ss[r * lds + c], scale, causal, r0 + r, c0 + c, Sk);
-      const float p = expf(s - lses[r]);
-      Ps[r * ldp + c] = from_f32<T>(p);
-      dSs[r * ldp + c] = from_f32<T>(p * (dPs[r * lds + c] - deltas[r]));
-    }
-    __syncthreads();
-    // dV[c][d] += sum_r P[r][c] dO[r][d];  dK[c][d] += sum_r dS[r][c] Q[r][d]
-    tile_mm<wmma::col_major, wmma::row_major>(dVs, ldo, Ps, ldp, Gs, ldt, tile, Dp, tile, true);
-    tile_mm<wmma::col_major, wmma::row_major>(dKs, ldo, dSs, ldp, Qs, ldt, tile, Dp, tile, true);
+  // this thread's two kv rows are kv_lo and kv_lo + 8
+  const int kv_lo = c0 + wrow0 + g;
+  const bool kv_edge = c0 + wrow0 + 15 >= Sk;
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
-  __syncthreads();
 
-  for (int i = tid; i < tile * D; i += kThreads) {
-    const int c = i / D, d = i - c * D;
-    if (c0 + c < Sk) {
-      const long long at = (((long long)b * Sk + c0 + c) * H + h) * D + d;
-      dk[at] = from_f32<T>(dKs[c * ldo + d] * scale);
-      dv[at] = from_f32<T>(dVs[c * ldo + d]);
+  for (int i = lo; i < q_tiles; ++i) {
+    sm90::cp_async_wait<kStages - 2>();
+    __syncthreads();     // tile i visible; every warp is past tile i - 1
+    if (i + kStages - 1 < q_tiles) stage_q(i + kStages - 1);
+    sm90::cp_async_commit();
+    const int st = (i - lo) % kStages, r0 = i * QT;
+    const bf16* Qt = Qs + st * QT * ld;
+    const bf16* Gt = Gs + st * QT * ld;
+    const float* Lt = Ls + st * QT;
+    const float* Dt = Ds + st * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's kv rows
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
     }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      sm90::load_a(a, Ks, ld, wrow0, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t f[4];
+        sm90::load_b_nk(f, Qt, ld, n * 8, kk * 16, lane);
+        sm90::mma_bf16(s[n], a, f[0], f[1]);
+        sm90::mma_bf16(s[n + 1], a, f[2], f[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      sm90::load_a(a, Vs, ld, wrow0, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t f[4];
+        sm90::load_b_nk(f, Gt, ld, n * 8, kk * 16, lane);
+        sm90::mma_bf16(dp[n], a, f[0], f[1]);
+        sm90::mma_bf16(dp[n + 1], a, f[2], f[3]);
+      }
+    }
+
+    // scores in base 2, masked where the tile crosses the diagonal or the
+    // keys' end; then p in place of s and ds in place of dp. A C fragment's
+    // column is a q row, so lse and delta come per column from the ring.
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale_log2);
+    if (kv_edge || (causal && c0 + wrow0 + 15 > r0)) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv_lo + (e >> 1) * 8;
+          const int row = r0 + n * 8 + 2 * t + (e & 1);
+          if ((causal && col > row) || col >= Sk) s[n][e] = kMaskValue;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 lq = *reinterpret_cast<const float2*>(Lt + n * 8 + 2 * t);
+      const float2 dd = *reinterpret_cast<const float2*>(Dt + n * 8 + 2 * t);
+      const float l2[2] = {__fmul_rn(lq.x, kLog2e), __fmul_rn(lq.y, kLog2e)};
+      const float dl[2] = {dd.x, dd.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(__fsub_rn(s[n][e], l2[e & 1]));
+        s[n][e] = p;
+        dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], dl[e & 1]));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this warp's columns, P^T and dS^T
+    // rounded to bf16 on their way to the A fragments
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t a[4];
+      sm90::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t f[4];
+        sm90::load_b_kn(f, Gt, ld, kk * 16, col0 + n * 8, lane);
+        sm90::mma_bf16(dva[n], a, f[0], f[1]);
+        sm90::mma_bf16(dva[n + 1], a, f[2], f[3]);
+      }
+      sm90::c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t f[4];
+        sm90::load_b_kn(f, Qt, ld, kk * 16, col0 + n * 8, lane);
+        sm90::mma_bf16(dka[n], a, f[0], f[1]);
+        sm90::mma_bf16(dka[n + 1], a, f[2], f[3]);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kv_lo + 8 * i;
+    if (row >= Sk) continue;
+    const long long at = (((long long)b * Sk + row) * H + h) * D;
+    store_row(dk + at, dka, i, scale, col0, D, t);
+    store_row(dv + at, dva, i, 1.f, col0, D, t);
   }
 }
 
@@ -654,29 +963,59 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
 int round16(int d) { return (d + 15) / 16 * 16; }
 
-// Square tile of the backward kernels and of the fp32 forward, by io type
-// (0 fp32, 1 bf16) and head dim.
-int tile_for(int dtype, int D) {
-  if (dtype == 1) return D <= 128 ? 64 : 32;
-  return D <= 128 ? 32 : 16;
+// Square tile of the fp32 kernels by head dim.
+int fp32_tile(int D) { return D <= 128 ? 32 : 16; }
+
+// Rows of every tile the kernels walk, by io type (0 fp32, 1 bf16), head
+// dim and `which`: 0 forward q tile, 1 forward kv tile, 2 dq's q rows, 3
+// dq's kv tile, 4 dk/dv's kv rows, 5 dk/dv's q tile.
+int tile_rows(int dtype, int D, int which) {
+  if (dtype != 1) return fp32_tile(D);
+  const int Dp = sm90::padded_head_dim(D);
+  switch (which) {
+    case 1: return fwd_kv_tile(Dp);
+    case 3: return dq_kv_tile(Dp);
+    case 5: return dkv_q_tile(Dp);
+    default: return kMmaRows;
+  }
 }
 
-// q and kv tile rows of the forward.
-int fwd_q_tile(int dtype, int D) { return dtype == 1 ? kFwdQTile : tile_for(dtype, D); }
-int fwd_kv_tile_for(int dtype, int D) {
-  return dtype == 1 ? fwd_kv_tile(sm90::padded_head_dim(D)) : tile_for(dtype, D);
+// Calls f(std::integral_constant<int, Dp>{}) with D's padded head dim.
+template <typename F> int with_padded_dim(int D, F f) {
+  switch (sm90::padded_head_dim(D)) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Dynamic shared memory of a kernel that holds `n_io` operand tiles, `n_p`
-// io-type score tiles, `n_s` fp32 score tiles, `n_acc` fp32 accumulators and
-// two fp32 row vectors.
-template <typename T>
-size_t smem_bytes(int tile, int Dp, int n_io, int n_p, int n_s, int n_acc) {
-  return n_io * region(sizeof(T) * tile * (Dp + Pad<T>::io)) +
-         n_p * region(sizeof(T) * tile * (tile + Pad<T>::io)) +
-         n_s * region(sizeof(float) * tile * (tile + Pad<T>::acc)) +
-         n_acc * region(sizeof(float) * tile * (Dp + Pad<T>::acc)) +
-         2 * region(sizeof(float) * tile);
+// Dynamic shared memory of an fp32 kernel that holds `n_d` tiles of Dp
+// columns (operands and accumulators), `n_s` tiles of `tile` columns (scores)
+// and two row vectors.
+size_t fp32_smem_bytes(int tile, int Dp, int n_d, int n_s) {
+  return n_d * region(sizeof(float) * tile * (Dp + kPad)) +
+         n_s * region(sizeof(float) * tile * (tile + kPad)) + 2 * region(sizeof(float) * tile);
+}
+
+// Dynamic shared memory of the bf16 kernels: 0 forward, 1 dq, 2 dk/dv.
+template <int Dp> size_t bf16_smem_bytes(int kernel) {
+  constexpr size_t row = sizeof(bf16) * (Dp + sm90::kRowPad);
+  if (kernel == 0) return row * (kMmaRows + 2 * kStages * fwd_kv_tile(Dp));
+  if (kernel == 1) return row * (2 * kMmaRows + 2 * kStages * dq_kv_tile(Dp));
+  return row * (2 * kMmaRows + 2 * kStages * dkv_q_tile(Dp)) +
+         sizeof(float) * 2 * kStages * dkv_q_tile(Dp);
+}
+
+int smem_bytes_for(int kernel, int dtype, int D) {
+  if (dtype == 1)
+    return with_padded_dim(
+        D, [&](auto dp) { return (int)bf16_smem_bytes<decltype(dp)::value>(kernel); });
+  const int n_d[3] = {4, 5, 6}, n_s[3] = {2, 3, 4};
+  return (int)fp32_smem_bytes(fp32_tile(D), round16(D), n_d[kernel], n_s[kernel]);
 }
 
 template <typename Kernel>
@@ -684,159 +1023,125 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
-               int Sk, int H, int D, Strides qs, Strides ks, Strides vs, float scale,
-               int causal, int q_offset, int vec, int dtype, cudaStream_t st) {
-  const int tile = tile_for(dtype, D), Dp = round16(D);
-  const size_t smem = smem_bytes<T>(tile, Dp, 3, 1, 1, 1);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, smem);
+struct Args {
+  const void *q, *k, *v, *g, *lse, *delta;
+  void *o0, *o1;       // forward: o, lse; dq: dq; dk/dv: dk, dv
+  int B, Sq, Sk, H, D;
+  Strides qs, ks, vs, gs;
+  float scale;
+  int causal, q_offset, vec;
+  cudaStream_t st;
+};
+
+#define SEED_F32(p) static_cast<const float*>(p)
+#define SEED_BF16(p) static_cast<const bf16*>(p)
+
+int launch_fp32(int kernel, const Args& a) {
+  const int tile = fp32_tile(a.D), Dp = round16(a.D);
+  const size_t smem = smem_bytes_for(kernel, 0, a.D);
+  cudaError_t err = kernel == 0   ? allow_smem(flash_fwd_kernel, smem)
+                    : kernel == 1 ? allow_smem(flash_bwd_dq_kernel, smem)
+                                  : allow_smem(flash_bwd_dkv_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + tile - 1) / tile, H, B);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, D, Dp, tile, qs, ks, vs, scale,
-      causal, q_offset, vec);
+  dim3 grid(((kernel == 2 ? a.Sk : a.Sq) + tile - 1) / tile, a.H, a.B);
+  float* o0 = static_cast<float*>(a.o0);
+  float* o1 = static_cast<float*>(a.o1);
+  if (kernel == 0)
+    flash_fwd_kernel<<<grid, kThreads, smem, a.st>>>(
+        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), o0, o1, a.Sq, a.Sk, a.H, a.D, Dp, tile,
+        a.qs, a.ks, a.vs, a.scale, a.causal, a.q_offset);
+  else if (kernel == 1)
+    flash_bwd_dq_kernel<<<grid, kThreads, smem, a.st>>>(
+        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
+        SEED_F32(a.delta), o0, a.Sq, a.Sk, a.H, a.D, Dp, tile, a.qs, a.ks, a.vs, a.gs, a.scale,
+        a.causal);
+  else
+    flash_bwd_dkv_kernel<<<grid, kThreads, smem, a.st>>>(
+        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
+        SEED_F32(a.delta), o0, o1, a.Sq, a.Sk, a.H, a.D, Dp, tile, a.qs, a.ks, a.vs, a.gs,
+        a.scale, a.causal);
   return (int)cudaGetLastError();
 }
 
-template <int Dp> size_t fwd_bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kFwdQTile + 2 * kFwdStages * fwd_kv_tile(Dp)) *
-         (Dp + sm90::kRowPad);
-}
-
-template <int Dp>
-int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                    int Sq, int Sk, int H, int D, Strides qs, Strides ks, Strides vs,
-                    float scale, int causal, int q_offset, int vec, cudaStream_t st) {
-  const int q_tiles = (Sq + kFwdQTile - 1) / kFwdQTile;
-  if (q_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_bf16_smem_bytes<Dp>();
-  cudaError_t err = allow_smem(flash_fwd_bf16_kernel<Dp>, smem);
+template <int Dp> int launch_bf16(int kernel, const Args& a) {
+  const int tiles = ((kernel == 2 ? a.Sk : a.Sq) + kMmaRows - 1) / kMmaRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = bf16_smem_bytes<Dp>(kernel);
+  cudaError_t err = kernel == 0   ? allow_smem(flash_fwd_bf16_kernel<Dp>, smem)
+                    : kernel == 1 ? allow_smem(flash_bwd_dq_bf16_kernel<Dp>, smem)
+                                  : allow_smem(flash_bwd_dkv_bf16_kernel<Dp>, smem);
   if (err != cudaSuccess) return (int)err;
-  const float scale_log2 = scale * kLog2e;
-  dim3 grid(H, B, q_tiles);
-  flash_fwd_bf16_kernel<Dp><<<grid, kFwdThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), Sq, Sk, H, D, qs, ks, vs, scale_log2, causal, q_offset, vec);
+  const float scale_log2 = a.scale * kLog2e;
+  dim3 grid(a.H, a.B, tiles);
+  bf16* o0 = static_cast<bf16*>(a.o0);
+  if (kernel == 0)
+    flash_fwd_bf16_kernel<Dp><<<grid, kMmaThreads, smem, a.st>>>(
+        SEED_BF16(a.q), SEED_BF16(a.k), SEED_BF16(a.v), o0, static_cast<float*>(a.o1), a.Sq,
+        a.Sk, a.H, a.D, a.qs, a.ks, a.vs, scale_log2, a.causal, a.q_offset, a.vec);
+  else if (kernel == 1)
+    flash_bwd_dq_bf16_kernel<Dp><<<grid, kMmaThreads, smem, a.st>>>(
+        SEED_BF16(a.q), SEED_BF16(a.k), SEED_BF16(a.v), SEED_BF16(a.g), SEED_F32(a.lse),
+        SEED_F32(a.delta), o0, a.Sq, a.Sk, a.H, a.D, a.qs, a.ks, a.vs, a.gs, a.scale,
+        scale_log2, a.causal, a.vec);
+  else
+    flash_bwd_dkv_bf16_kernel<Dp><<<grid, kMmaThreads * dkv_split(Dp), smem, a.st>>>(
+        SEED_BF16(a.q), SEED_BF16(a.k), SEED_BF16(a.v), SEED_BF16(a.g), SEED_F32(a.lse),
+        SEED_F32(a.delta), o0, static_cast<bf16*>(a.o1), a.Sq, a.Sk, a.H, a.D, a.qs, a.ks,
+        a.vs, a.gs, a.scale, scale_log2, a.causal, a.vec);
   return (int)cudaGetLastError();
 }
 
-int dispatch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                      int Sq, int Sk, int H, int D, Strides qs, Strides ks, Strides vs,
-                      float scale, int causal, int q_offset, int vec, cudaStream_t st) {
-#define SEED_FWD_CASE(dp)                                                                 \
-  case dp:                                                                                \
-    return launch_fwd_bf16<dp>(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale, causal, \
-                               q_offset, vec, st);
-  switch (sm90::padded_head_dim(D)) {
-    SEED_FWD_CASE(32) SEED_FWD_CASE(64) SEED_FWD_CASE(96)
-    SEED_FWD_CASE(128) SEED_FWD_CASE(192) SEED_FWD_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SEED_FWD_CASE
+#undef SEED_F32
+#undef SEED_BF16
+
+int launch(int kernel, int dtype, const Args& a) {
+  if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > 256 || a.H > 65535 ||
+      a.B > 65535 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_fp32(kernel, a);
+  return with_padded_dim(a.D, [&](auto dp) { return launch_bf16<decltype(dp)::value>(kernel, a); });
 }
 
-template <typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
-              const void* delta, void* dq, int B, int Sq, int Sk, int H, int D, Strides qs,
-              Strides ks, Strides vs, Strides gs, float scale, int causal, int vec, int dtype,
-              cudaStream_t st) {
-  const int tile = tile_for(dtype, D), Dp = round16(D);
-  const size_t smem = smem_bytes<T>(tile, Dp, 4, 1, 2, 1);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + tile - 1) / tile, H, B);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Sk, H, D, Dp, tile, qs, ks,
-      vs, gs, scale, causal, vec);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
-               Strides qs, Strides ks, Strides vs, Strides gs, float scale, int causal,
-               int vec, int dtype, cudaStream_t st) {
-  const int tile = tile_for(dtype, D), Dp = round16(D);
-  const size_t smem = smem_bytes<T>(tile, Dp, 4, 2, 2, 2);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + tile - 1) / tile, H, B);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H,
-      D, Dp, tile, qs, ks, vs, gs, scale, causal, vec);
-  return (int)cudaGetLastError();
-}
-
-bool bad_shape(int B, int Sq, int Sk, int H, int D, int dtype) {
-  return B < 1 || Sq < 1 || Sk < 1 || H < 1 || D < 1 || D > 256 || H > 65535 || B > 65535 ||
-         (dtype != 0 && dtype != 1);
-}
+Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and every output but lse).
 // `strides` holds (batch, sequence, head) element strides of q, k, v and, for
 // the backward kernels, dO, in that order; the head dim has a unit stride.
-// `vec` says that a bf16 call may move 8 elements at a time (see stage()).
-// Outputs are contiguous [B, S, H, D]; lse and delta are fp32 [B, H, Sq].
-// Each function returns the launch's cudaError_t (0 on success).
+// `vec` says that a bf16 call may move 8 elements at a time (see
+// sm90::stage_tile). Outputs are contiguous [B, S, H, D]; lse and delta are
+// fp32 [B, H, Sq]. Each launch returns its cudaError_t (0 on success).
 
-extern "C" int seed_flash_fwd_q_tile(int dtype, int D) { return fwd_q_tile(dtype, D); }
-extern "C" int seed_flash_fwd_kv_tile(int dtype, int D) { return fwd_kv_tile_for(dtype, D); }
-extern "C" int seed_flash_bwd_tile(int dtype, int D) { return tile_for(dtype, D); }
+// Rows of the tiles the kernels walk (tile_rows above): the wrapper's mirror.
+extern "C" int seed_flash_tile(int dtype, int D, int which) { return tile_rows(dtype, D, which); }
 
-// Dynamic shared memory of one forward block (the wrapper's record).
-extern "C" int seed_flash_fwd_smem_bytes(int dtype, int D) {
-  if (dtype == 1) {
-    switch (sm90::padded_head_dim(D)) {
-      case 32: return (int)fwd_bf16_smem_bytes<32>();
-      case 64: return (int)fwd_bf16_smem_bytes<64>();
-      case 96: return (int)fwd_bf16_smem_bytes<96>();
-      case 128: return (int)fwd_bf16_smem_bytes<128>();
-      case 192: return (int)fwd_bf16_smem_bytes<192>();
-      default: return (int)fwd_bf16_smem_bytes<256>();
-    }
-  }
-  const int tile = tile_for(dtype, D);
-  return (int)smem_bytes<float>(tile, round16(D), 3, 1, 1, 1);
+// Dynamic shared memory of one block of kernel 0 (forward), 1 (dq) or 2 (dk/dv).
+extern "C" int seed_flash_smem_bytes(int kernel, int dtype, int D) {
+  return smem_bytes_for(kernel, dtype, D);
 }
 
 extern "C" int seed_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int B, int Sq, int Sk, int H, int D, const long long* strides,
                               float scale, int causal, int q_offset, int vec, int dtype,
                               void* stream) {
-  if (bad_shape(B, Sq, Sk, H, D, dtype)) return (int)cudaErrorInvalidValue;
-  const Strides qs{strides[0], strides[1], strides[2]}, ks{strides[3], strides[4], strides[5]},
-      vs{strides[6], strides[7], strides[8]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch_fwd_bf16(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale, causal,
-                             q_offset, vec, st);
-  return launch_fwd<float>(q, k, v, o, lse, B, Sq, Sk, H, D, qs, ks, vs, scale, causal,
-                           q_offset, 0, dtype, st);
+  const Strides none{0, 0, 0};
+  return launch(0, dtype,
+                Args{q, k, v, nullptr, nullptr, nullptr, o, lse, B, Sq, Sk, H, D,
+                     strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                     none, scale, causal, q_offset, dtype == 1 ? vec : 0,
+                     static_cast<cudaStream_t>(stream)});
 }
 
 extern "C" int seed_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int Sq,
                                  int Sk, int H, int D, const long long* strides, float scale,
                                  int causal, int vec, int dtype, void* stream) {
-  if (bad_shape(B, Sq, Sk, H, D, dtype)) return (int)cudaErrorInvalidValue;
-  const Strides qs{strides[0], strides[1], strides[2]}, ks{strides[3], strides[4], strides[5]},
-      vs{strides[6], strides[7], strides[8]}, gs{strides[9], strides[10], strides[11]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, D, qs, ks, vs,
-                                    gs, scale, causal, vec, dtype, st);
-  return launch_dq<float>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, D, qs, ks, vs, gs,
-                          scale, causal, 0, dtype, st);
+  return launch(1, dtype,
+                Args{q, k, v, dout, lse, delta, dq, nullptr, B, Sq, Sk, H, D,
+                     strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                     strides_at(strides, 3), scale, causal, 0, dtype == 1 ? vec : 0,
+                     static_cast<cudaStream_t>(stream)});
 }
 
 extern "C" int seed_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -844,13 +1149,9 @@ extern "C" int seed_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
                                   const long long* strides, float scale, int causal, int vec,
                                   int dtype, void* stream) {
-  if (bad_shape(B, Sq, Sk, H, D, dtype)) return (int)cudaErrorInvalidValue;
-  const Strides qs{strides[0], strides[1], strides[2]}, ks{strides[3], strides[4], strides[5]},
-      vs{strides[6], strides[7], strides[8]}, gs{strides[9], strides[10], strides[11]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, qs, ks,
-                                     vs, gs, scale, causal, vec, dtype, st);
-  return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D, qs, ks, vs, gs,
-                           scale, causal, 0, dtype, st);
+  return launch(2, dtype,
+                Args{q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D,
+                     strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                     strides_at(strides, 3), scale, causal, 0, dtype == 1 ? vec : 0,
+                     static_cast<cudaStream_t>(stream)});
 }

@@ -1,5 +1,5 @@
 // Warp-level tensor-core primitives shared by the bf16 attention kernels
-// (flash_attention.cu's forward, short_mha.cu): mma.sync m16n8k16 with fp32
+// (flash_attention.cu's forward and backward, short_mha.cu): mma.sync m16n8k16 with fp32
 // accumulators in registers, ldmatrix (plain and .trans) for the operands,
 // cp.async copies of 16 bytes into shared memory, and the conversion of an
 // fp32 accumulator fragment to a bf16 A operand without a trip through
@@ -107,6 +107,14 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
   const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared (per-row fp32 values; .cg copies 16 bytes only,
+// so this one goes through .ca), zero-filled when `valid` is false.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(bytes));
 }
 

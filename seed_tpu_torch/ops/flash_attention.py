@@ -152,10 +152,8 @@ short_mha.launches = 0
 # ------------------------------------------------ tiled flash: rows 3, 4, 5
 
 _FLASH_SIGNATURES = {
-    "seed_flash_fwd_q_tile": [ctypes.c_int, ctypes.c_int],
-    "seed_flash_fwd_kv_tile": [ctypes.c_int, ctypes.c_int],
-    "seed_flash_bwd_tile": [ctypes.c_int, ctypes.c_int],
-    "seed_flash_fwd_smem_bytes": [ctypes.c_int, ctypes.c_int],
+    "seed_flash_tile": [ctypes.c_int] * 3,
+    "seed_flash_smem_bytes": [ctypes.c_int] * 3,
     "seed_flash_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float]
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
@@ -168,37 +166,45 @@ _FLASH_SIGNATURES = {
 }
 
 
-def bwd_tile(dtype: torch.dtype, head_dim: int) -> int:
-    """Rows of the square tile the two backward kernels of
-    csrc/flash_attention.cu walk (``tile_for`` there); their plain versions
-    walk the same tiles so that sums happen in the same order."""
-    if dtype == torch.bfloat16:
-        return 64 if head_dim <= 128 else 32
+def _fp32_tile(head_dim: int) -> int:
+    """The square tile of the fp32 kernels (``fp32_tile`` there)."""
     return 32 if head_dim <= 128 else 16
 
 
 def fwd_tiles(dtype: torch.dtype, head_dim: int) -> Tuple[int, int]:
-    """(q tile, kv tile) rows of the forward kernel (``fwd_q_tile`` and
-    ``fwd_kv_tile_for`` there). bf16: 64 q rows (4 warps of 16), kv tiles of
-    64 rows up to D = 128 and 32 above, where the register accumulator
-    leaves room for half the score tile. fp32: the backward's square tile.
+    """(q tile, kv tile) rows of the forward kernel (``tile_rows`` 0 and 1
+    in csrc/flash_attention.cu). bf16: 64 q rows (4 warps of 16), kv tiles
+    of 64 rows up to D = 128 and 32 above, where the register accumulator
+    leaves room for half the score tile. fp32: one square tile.
     :func:`flash_fwd_plain` rescales at the same kv tile boundaries and stops
     a causal q tile where the kernel does."""
     if dtype == torch.bfloat16:
         return 64, (64 if head_dim <= 128 else 32)
-    tile = bwd_tile(dtype, head_dim)
-    return tile, tile
+    return _fp32_tile(head_dim), _fp32_tile(head_dim)
+
+
+def bwd_tiles(dtype: torch.dtype, head_dim: int
+              ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((q rows, kv tile) of the dq kernel, (kv rows, q tile) of the dk/dv
+    kernel) (``tile_rows`` 2-5 in csrc/flash_attention.cu). bf16: blocks own
+    64 rows; dq streams kv tiles of 64 rows up to D = 128 and 32 above (the
+    dQ accumulator takes the registers), dk/dv streams q tiles of 64 rows up
+    to D = 64 and 32 above (dK and dV take them). fp32: one square tile.
+    The plain versions sum in these tiles' order and stop where the kernels'
+    causal bounds do."""
+    if dtype == torch.bfloat16:
+        return (64, 64 if head_dim <= 128 else 32), (64, 64 if head_dim <= 64 else 32)
+    t = _fp32_tile(head_dim)
+    return (t, t), (t, t)
 
 
 def _flash_lib(dtype: torch.dtype, head_dim: int):
     lib = kernels.load("flash_attention", _FLASH_SIGNATURES)
-    code = _DTYPES[dtype]
-    kernel = ((lib.seed_flash_fwd_q_tile(code, head_dim),
-               lib.seed_flash_fwd_kv_tile(code, head_dim)),
-              lib.seed_flash_bwd_tile(code, head_dim))
-    if kernel != (fwd_tiles(dtype, head_dim), bwd_tile(dtype, head_dim)):
+    rows = [lib.seed_flash_tile(_DTYPES[dtype], head_dim, i) for i in range(6)]
+    kernel = (tuple(rows[:2]), (tuple(rows[2:4]), tuple(rows[4:])))
+    if kernel != (fwd_tiles(dtype, head_dim), bwd_tiles(dtype, head_dim)):
         raise RuntimeError(f"flash_attention: the kernel's tiles {kernel} differ "
-                           "from fwd_tiles() / bwd_tile(); the plain versions "
+                           "from fwd_tiles() / bwd_tiles(); the plain versions "
                            "no longer mirror them")
     return lib
 
@@ -215,6 +221,16 @@ def _tile_mask(rows: torch.Tensor, cols: torch.Tensor, causal: bool,
     if causal:
         mask = mask | (cols[None, :] > rows[:, None])
     return mask
+
+
+def _base2(dtype: torch.dtype, sm_scale: float, device):
+    """Score scale and exponential of the kernels: the bf16 kernels work in
+    base 2 (scores times the fp32 product ``scale * log2(e)``, exp2), the
+    fp32 kernels in base e."""
+    if dtype != torch.bfloat16:
+        return sm_scale, torch.exp, False
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    return f32(sm_scale) * f32(LOG2E), torch.exp2, True
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -235,10 +251,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk = k.shape[1]
     q_tile, tile = fwd_tiles(q.dtype, D)
     dev = q.device
-    base2 = q.dtype == torch.bfloat16
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
-    scale = f32(sm_scale) * f32(LOG2E) if base2 else sm_scale
-    exp = torch.exp2 if base2 else torch.exp
+    scale, exp, base2 = _base2(q.dtype, sm_scale, dev)
     qf, kf, vf = _bhsd(q), _bhsd(k), _bhsd(v)
     kv_tiles = -(-Sk // tile)
     pad = kv_tiles * tile - Sk      # the kernel's last tile holds zero rows
@@ -273,61 +286,81 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     empty = l == 0
     l_inv = torch.where(empty, torch.ones_like(l), 1.0 / l)
     out = (acc * l_inv).to(q.dtype).permute(0, 2, 1, 3).contiguous()
-    lse = (m * f32(LN2) if base2 else m) + torch.log(l)
+    ln2 = torch.tensor(LN2, dtype=torch.float32, device=dev)
+    lse = (m * ln2 if base2 else m) + torch.log(l)
     lse = torch.where(empty, torch.zeros_like(l), lse)
     return out, lse[..., 0].contiguous()
 
 
 def _bwd_tile_terms(qf, kf, vf, gf, lse, delta, rows, cols, causal, kv_len,
-                    sm_scale, dtype):
+                    scale, exp, dtype):
     """p and ds of one (q rows, kv cols) tile, both rounded to the io type
-    as the kernels round them before their products."""
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    as the kernels round them before their products. ``lse`` is already in
+    the base of ``exp``."""
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     s = s.masked_fill(_tile_mask(rows, cols, causal, kv_len), MASK_VALUE)
-    p = torch.exp(s - lse)
+    p = exp(s - lse)
     dp = torch.matmul(gf, vf.transpose(-1, -2))
     ds = p * (dp - delta)
     return p.to(dtype).float(), ds.to(dtype).float()
 
 
+def _bwd_inputs(q, k, v, dout, lse, sm_scale):
+    """[B, H, S, D] fp32 views, the score scale, the exponential and lse in
+    its base (bf16: lse * log2(e), an fp32 product)."""
+    scale, exp, base2 = _base2(q.dtype, sm_scale, q.device)
+    if base2:
+        lse = lse * torch.tensor(LOG2E, dtype=torch.float32, device=q.device)
+    return (_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(dout)), scale, exp, lse
+
+
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool,
                        sm_scale: float) -> torch.Tensor:
     """The dq kernel's function in plain PyTorch (no q offset): lse and delta
-    fp32 [B, H, Sq]; dq = scale * sum over kv tiles of ds_io @ k, fp32 sums,
-    the scale applied once at the end."""
+    fp32 [B, H, Sq]; dq = scale * sum over the kernel's kv tiles
+    (:func:`bwd_tiles`) of ds_io @ k, fp32 sums, the scale applied once at
+    the end. A causal q tile stops at the kv tile holding its last row's
+    diagonal."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    tile = bwd_tile(q.dtype, D)
-    qf, kf, vf, gf = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(dout)
+    (q_tile, tile), _ = bwd_tiles(q.dtype, D)
+    (qf, kf, vf, gf), scale, exp, lse = _bwd_inputs(q, k, v, dout, lse, sm_scale)
     rows = torch.arange(Sq, device=q.device)
+    kv_tiles = -(-Sk // tile)
+    hi = ((rows // q_tile) * q_tile + q_tile - 1) // tile + 1 if causal else kv_tiles
     dq = torch.zeros((B, H, Sq, D), device=q.device)
-    for c0 in range(0, Sk, tile):
-        cols = torch.arange(c0, min(c0 + tile, Sk), device=q.device)
+    for j in range(kv_tiles):
+        cols = torch.arange(j * tile, min((j + 1) * tile, Sk), device=q.device)
         _, ds = _bwd_tile_terms(qf, kf[:, :, cols], vf[:, :, cols], gf,
                                 lse[..., None], delta[..., None], rows, cols,
-                                causal, Sk, sm_scale, q.dtype)
-        dq = dq + torch.matmul(ds, kf[:, :, cols])
+                                causal, Sk, scale, exp, q.dtype)
+        met = torch.as_tensor(j < hi, device=q.device)
+        dq = torch.where(met[..., None], dq + torch.matmul(ds, kf[:, :, cols]), dq)
     return (dq * sm_scale).to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal: bool,
                         sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel's function in plain PyTorch (no q offset):
-    dv = sum over q tiles of p_io^T @ dO, dk = scale * sum of ds_io^T @ q."""
+    dv = sum over the kernel's q tiles (:func:`bwd_tiles`) of p_io^T @ dO,
+    dk = scale * sum of ds_io^T @ q. Under causal masking a kv tile starts at
+    the q tile whose last row reaches its first column."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    tile = bwd_tile(q.dtype, D)
-    qf, kf, vf, gf = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(dout)
+    _, (kv_tile, q_tile) = bwd_tiles(q.dtype, D)
+    (qf, kf, vf, gf), scale, exp, lse = _bwd_inputs(q, k, v, dout, lse, sm_scale)
     cols = torch.arange(Sk, device=q.device)
+    lo = (cols // kv_tile) * kv_tile // q_tile if causal else torch.zeros_like(cols)
     dk = torch.zeros((B, H, Sk, D), device=q.device)
     dv = torch.zeros((B, H, Sk, D), device=q.device)
-    for r0 in range(0, Sq, tile):
-        rows = torch.arange(r0, min(r0 + tile, Sq), device=q.device)
+    for i, r0 in enumerate(range(0, Sq, q_tile)):
+        rows = torch.arange(r0, min(r0 + q_tile, Sq), device=q.device)
         p, ds = _bwd_tile_terms(qf[:, :, rows], kf, vf, gf[:, :, rows],
                                 lse[:, :, rows, None], delta[:, :, rows, None],
-                                rows, cols, causal, Sk, sm_scale, q.dtype)
-        dv = dv + torch.matmul(p.transpose(-1, -2), gf[:, :, rows])
-        dk = dk + torch.matmul(ds.transpose(-1, -2), qf[:, :, rows])
+                                rows, cols, causal, Sk, scale, exp, q.dtype)
+        met = (i >= lo)[:, None]
+        dv = torch.where(met, dv + torch.matmul(p.transpose(-1, -2), gf[:, :, rows]), dv)
+        dk = torch.where(met, dk + torch.matmul(ds.transpose(-1, -2), qf[:, :, rows]), dk)
     to_io = lambda t: t.to(q.dtype).permute(0, 2, 1, 3).contiguous()
     return to_io(dk * sm_scale), to_io(dv)
 

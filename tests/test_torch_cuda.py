@@ -158,9 +158,14 @@ def test_flash_fwd_kernel_matches_plain(gen, dtype, Sq, Sk, H, D, causal, off):
     assert (lse - want_lse).abs().max().item() <= 2e-5
 
 
+# the backward adds D=88 causal with S a multiple of neither backward tile
+# (dk/dv's 32-row q tile, dq's 64-row kv tile) and D=36 non-causal
+FLASH_BWD_CASES = [c for c in FLASH_CASES if c[-1] == 0] + [
+    (200, 200, 2, 88, True, 0), (96, 96, 2, 36, False, 0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Sq,Sk,H,D,causal,off",
-                         [c for c in FLASH_CASES if c[-1] == 0])
+@pytest.mark.parametrize("Sq,Sk,H,D,causal,off", FLASH_BWD_CASES)
 def test_flash_bwd_kernels_match_plain(gen, dtype, Sq, Sk, H, D, causal, off):
     """Gradients are sums of up to Sq products of O(1) terms: fp32 differs by
     sum order (1e-4 absolute at these sizes), bf16 by roundings of p and ds
@@ -254,13 +259,27 @@ def test_linear_routes_prefill_to_the_kernel(gen):
     assert int8_matmul.launches == before + 1
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "short_mha"])
+def _bwd_args(gen, S, H, D, B=2):
+    """bf16 backward inputs: q, k, v, dout, the forward's lse and delta."""
+    q, k, v = _flash_inputs(gen, S, S, H, D, torch.bfloat16, B)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    out, lse = TF.flash_fwd(q, k, v, True, D ** -0.5)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    return q, k, v, dout, lse, delta, True, D ** -0.5
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "short_mha", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
 def test_bf16_kernels_repeat_bit_for_bit(gen, kernel):
     """No atomics and no split over kv: two calls on the same inputs give
     the same bits (training's resume check depends on it)."""
     if kernel == "flash_fwd":
         q, k, v = _flash_inputs(gen, 1024, 1024, 4, 128, torch.bfloat16)
         run = lambda: TF.flash_fwd(q, k, v, True, 128 ** -0.5)
+    elif kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        args = _bwd_args(gen, 1024, 4, 128, B=4)
+        fn = getattr(TF, kernel)
+        run = lambda: fn(*args)
     else:
         qkv = torch.randn(4, 257, 3 * 16 * 88, generator=gen,
                           device="cuda").bfloat16()
@@ -269,6 +288,8 @@ def test_bf16_kernels_repeat_bit_for_bit(gen, kernel):
                        short_mha(q, k, v, 88 ** -0.5, False))
     first, second = run(), run()
     torch.cuda.synchronize()
+    if kernel == "flash_bwd_dq":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -276,14 +297,26 @@ def test_bf16_kernels_repeat_bit_for_bit(gen, kernel):
 @pytest.mark.parametrize("kernel,S,D", [("flash_fwd", 300, 256),
                                         ("short_mha", 257, 256),
                                         ("short_mha", 1024, 88),
-                                        ("flash_fwd", 1024, 88)])
+                                        ("flash_fwd", 1024, 88),
+                                        ("flash_bwd_dq", 300, 256),
+                                        ("flash_bwd_dkv", 300, 256),
+                                        ("flash_bwd_dq", 1024, 88),
+                                        ("flash_bwd_dkv", 1024, 88)])
 def test_bf16_kernels_launch_at_the_edge_shapes(gen, kernel, S, D):
-    """D=256 and Sk=1024 in bf16 go to the kernel: one launch, no error."""
-    q, k, v = _flash_inputs(gen, S, S, 2, D, torch.bfloat16, B=1)
-    fn = TF.flash_fwd if kernel == "flash_fwd" else short_mha
-    before = fn.launches
-    out = (TF.flash_fwd(q, k, v, True, D ** -0.5)[0] if kernel == "flash_fwd"
-           else short_mha(q, k, v, D ** -0.5, True))
+    """D=256 (the backward's split dK/dV columns) and S=1024 in bf16 go to
+    the kernel: one launch, no error."""
+    fn = short_mha if kernel == "short_mha" else getattr(TF, kernel)
+    if kernel.startswith("flash_bwd"):
+        args = _bwd_args(gen, S, 2, D, B=1)
+        q = args[0]
+        before = fn.launches
+        outs = fn(*args)
+    else:
+        q, k, v = _flash_inputs(gen, S, S, 2, D, torch.bfloat16, B=1)
+        before = fn.launches
+        outs = (TF.flash_fwd(q, k, v, True, D ** -0.5)[0] if kernel == "flash_fwd"
+                else short_mha(q, k, v, D ** -0.5, True))
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    assert out.shape == q.shape and out.isfinite().all()
+    for out in (outs if isinstance(outs, tuple) else (outs,)):
+        assert out.shape == q.shape and out.isfinite().all()

@@ -166,16 +166,45 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                  TF.flash_bwd_dkv)] == counts
 
 
-@pytest.mark.parametrize("dtype,D,fwd,bwd", [(torch.bfloat16, 128, (64, 64), 64),
-                                             (torch.bfloat16, 160, (64, 32), 32),
-                                             (torch.float32, 128, (32, 32), 32),
-                                             (torch.float32, 256, (16, 16), 16)])
+@pytest.mark.parametrize(
+    "dtype,D,fwd,bwd",
+    [(torch.bfloat16, 128, (64, 64), ((64, 64), (64, 32))),
+     (torch.bfloat16, 160, (64, 32), ((64, 32), (64, 32))),
+     (torch.float32, 128, (32, 32), ((32, 32), (32, 32))),
+     (torch.float32, 256, (16, 16), ((16, 16), (16, 16))),
+     (torch.bfloat16, 64, (64, 64), ((64, 64), (64, 64)))],
+    ids=["dtype0-128-fwd0-64", "dtype1-160-fwd1-32", "dtype2-128-fwd2-32",
+         "dtype3-256-fwd3-16", "bf16-64"])
 def test_plain_versions_walk_the_kernels_tiles(dtype, D, fwd, bwd):
-    """The forward's (q tile, kv tile) pair and the backward's square tile
-    are separate: the bf16 forward takes 64 q rows at every D and halves its
-    kv tile above 128; fp32 and the backward keep one square tile."""
+    """The forward's (q tile, kv tile) and the backward's ((dq q rows, kv
+    tile), (dk/dv kv rows, q tile)): bf16 blocks own 64 rows; the forward
+    and dq halve their kv tile above D = 128, dk/dv streams 32-row q tiles
+    above D = 64; fp32 keeps one square tile everywhere."""
     assert TF.fwd_tiles(dtype, D) == fwd
-    assert TF.bwd_tile(dtype, D) == bwd
+    assert TF.bwd_tiles(dtype, D) == bwd
+
+
+def test_flash_lib_raises_when_the_kernels_tiles_differ(monkeypatch):
+    """_flash_lib reads the six tile sizes the library was built with
+    (seed_flash_tile) and refuses a library whose tiles the plain versions
+    do not walk: here one whose dk/dv q tile is 64 rows at D = 128."""
+    fwd, (dq, dkv) = (TF.fwd_tiles(torch.bfloat16, 128),
+                      TF.bwd_tiles(torch.bfloat16, 128))
+
+    class Library:
+        def __init__(self, rows):
+            self.rows = rows
+
+        def seed_flash_tile(self, dtype, head_dim, which):
+            return self.rows[which]
+
+    rows = [*fwd, *dq, *dkv]
+    monkeypatch.setattr(TF.kernels, "load", lambda name, sig: Library(rows))
+    assert TF._flash_lib(torch.bfloat16, 128).rows == rows
+    monkeypatch.setattr(TF.kernels, "load",
+                        lambda name, sig: Library(rows[:5] + [64]))
+    with pytest.raises(RuntimeError, match="no longer mirror"):
+        TF._flash_lib(torch.bfloat16, 128)
 
 
 # (name, Sq, Sk, D, causal, q_offset): Sq not a multiple of the forward's
@@ -220,6 +249,61 @@ def test_retiled_forward_plain_matches_pallas_kernel(name, Sq, Sk, D, causal,
         np.testing.assert_allclose(f32(got), f32(want), atol=2.0 ** -8,
                                    rtol=2.0 ** -7)
         np.testing.assert_allclose(f32(lse), f32(want_lse), atol=1e-4, rtol=1e-5)
+
+
+# (name, S, D, causal): S = 200 is a multiple of neither backward tile (64,
+# 32), D = 88 pads to 96 (dk/dv's 32-row q tiles); D = 64 takes 64-row q tiles
+RETILED_BWD = [("ragged_causal_d88", 200, 88, True),
+               ("ragged_noncausal_d64", 150, 64, False)]
+
+
+def _pallas_bwd_bhsd(arrays, dout, lse, delta, causal, scale, dtype,
+                     block=128):
+    """seed_tpu's _flash_bwd_bhsd in interpret mode on [B, H, S, D] inputs
+    padded to its square tiles (rows) and to 128 lanes (D), as
+    _flash_bwd_rule pads them -> (dq, dk, dv) as [B, S, H, D]."""
+    q, k, v, g = (jnp.asarray(a, dtype).transpose(0, 2, 1, 3)
+                  for a in (*arrays, dout))
+    Sq, Sk, D = q.shape[2], k.shape[2], q.shape[3]
+    rows = lambda n: -(-n // block) * block - n
+    pad = lambda t, n: jnp.pad(t, ((0, 0), (0, 0), (0, rows(n)), (0, 128 - D)))
+    vec = lambda x: jnp.pad(jnp.asarray(x, jnp.float32),
+                            ((0, 0), (0, 0), (0, rows(Sq))))[..., None]
+    grads = JF._flash_bwd_bhsd(pad(q, Sq), pad(k, Sk), pad(v, Sk), pad(g, Sq),
+                               vec(lse), vec(delta), causal, scale, Sk, block,
+                               block)
+    return [t[:, :, :n, :D].transpose(0, 2, 1, 3)
+            for t, n in zip(grads, (Sq, Sk, Sk))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,S,D,causal", RETILED_BWD,
+                         ids=[c[0] for c in RETILED_BWD])
+def test_retiled_backward_plain_matches_pallas_kernels(name, S, D, causal,
+                                                        dtype):
+    """flash_bwd_dq_plain and flash_bwd_dkv_plain on the backward kernels'
+    own tiles (bf16: 64-row dq blocks over 64-row kv tiles, 64-row dk/dv
+    blocks over 32- or 64-row q tiles, base-2 scores) against the Pallas
+    _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (128-row square tiles,
+    base e), on the same lse and delta. fp32: 1e-4 (sum order only); bf16:
+    2**-5 of the largest gradient (p and ds rounded to bf16 from scores in
+    another base and order, one ulp apart)."""
+    arrays = qkv(S, S, 2, D, B=2)
+    dout = randn((2, S, 2, D), 3)
+    scale = D ** -0.5
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    o, lse = _pallas_fwd_bhsd(arrays, causal, scale, 0, jdt)
+    delta = np.einsum("bshd,bshd->bhs", f32(jnp.asarray(dout, jdt)), f32(o))
+    want = _pallas_bwd_bhsd(arrays, dout, f32(lse), delta, causal, scale, jdt)
+    q, k, v, g = as_torch((*arrays, dout), tdt)
+    args = (q, k, v, g, torch.from_numpy(f32(lse)).contiguous(),
+            torch.from_numpy(delta).contiguous(), causal, scale)
+    got = [TF.flash_bwd_dq_plain(*args), *TF.flash_bwd_dkv_plain(*args)]
+    for label, t, w in zip(("dq", "dk", "dv"), got, want):
+        assert t.shape == (2, S, 2, D) and t.dtype == tdt, label
+        err = np.abs(f32(t) - f32(w)).max()
+        tol = 1e-4 if dtype == "float32" else 2.0 ** -5 * np.abs(f32(w)).max()
+        assert err <= tol, (label, err, tol)
 
 
 # ------------------------------------------------ the slice: LLaMA training
