@@ -5,11 +5,15 @@
 Phases, each printing lines of its own:
 
 1. build   — compile the four CUDA sources of seed_tpu_torch/csrc/ (one nvcc
-             per source, all at once) into build/seed_tpu_torch/.
+             per source, all at once) into build/seed_tpu_torch/; a spill in
+             any tensor-core kernel fails the run.
 2. kernels — hold each of the six kernels (short_mha, int8_matmul, the tiled
              flash forward, dq and dk/dv, and w8a8_matmul) against its plain
              PyTorch version on the card at the main paths' shapes, and time
-             kernel, plain version, the library yardstick and the bound.
+             kernel, plain version, the library yardstick and the bound
+             (int8_matmul also against cuBLAS on a pre-converted weight);
+             int8_matmul and w8a8_matmul repeat their bits at every case;
+             short_mha's gradient (the mha recompute) against mha.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -118,30 +122,49 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 # --------------------------------------------------------------- phase 1
 
-# the bf16 tensor-core kernels of rows 1 and 3-5, by their functions' names
-PTXAS_KERNELS = {"short_mha": "short_mha_bf16_kernel",
-                 "flash_fwd": "flash_fwd_bf16_kernel",
-                 "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
-                 "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel"}
+# the tensor-core kernels of rows 1-6, by their functions' names (row 2 also
+# its split-K reduction)
+PTXAS_KERNELS = {"short_mha": ("short_mha_bf16_kernel",),
+                 "flash_fwd": ("flash_fwd_bf16_kernel",),
+                 "flash_bwd_dq": ("flash_bwd_dq_bf16_kernel",),
+                 "flash_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",),
+                 "int8_matmul": ("int8_mm_bf16", "int8_mm_reduce"),
+                 "w8a8_matmul": ("w8a8_mm",)}
+
+
+def _instance(fn: str, mangled: str):
+    """The instance key of kernel function ``fn`` in a mangled entry name:
+    its integer template arguments joined by "/" (Dp for the flash kernels,
+    "Dp/mode" for short_mha, "warps_m/warps_n/m16 tiles/slabs/out type" for
+    w8a8_mm), or the function's name when it is no template; None when the
+    entry is another function."""
+    m = re.search(fn + r"(?:I((?:Li\d+E)+)(13__nv_bfloat16|f)?E)?", mangled)
+    if m is None:
+        return None
+    if m.group(1) is None:
+        return fn
+    key = "/".join(re.findall(r"Li(\d+)E", m.group(1)))
+    if m.group(2):
+        key += "/bf16" if "bfloat16" in m.group(2) else "/f32"
+    return key
 
 
 def ptxas_usage(reports: dict) -> dict:
-    """Registers and spill bytes nvcc reported for each instantiation of the
-    bf16 kernels of rows 1 and 3-5: {kernel: {instance: {registers,
-    spill_stores, spill_loads}}}, the instance being "Dp" (the flash
-    kernels) or "Dp/mode" (short_mha); empty for a library not built in this
-    run."""
+    """Registers and spill bytes nvcc reported for each instance of the
+    tensor-core kernels of rows 1-6: {kernel: {instance: {registers,
+    spill_stores, spill_loads}}}, the instance as :func:`_instance` names it;
+    empty for a library not built in this run."""
     usage, current = {}, None
     for log in reports.values():
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '([^']+)'", line)
             if entry:
                 current = None
-                for kernel, fn in PTXAS_KERNELS.items():
-                    args = re.search(fn + r"ILi(\d+)E(?:Li(\d+)E)?", entry.group(1))
-                    if args:
-                        key = "/".join(a for a in args.groups() if a is not None)
-                        current = usage.setdefault(kernel, {}).setdefault(key, {})
+                for kernel, fns in PTXAS_KERNELS.items():
+                    for fn in fns:
+                        key = _instance(fn, entry.group(1))
+                        if key is not None:
+                            current = usage.setdefault(kernel, {}).setdefault(key, {})
                 continue
             if current is None:
                 continue
@@ -156,9 +179,16 @@ def ptxas_usage(reports: dict) -> dict:
     return usage
 
 
+def spill_bytes(use: dict):
+    """Spill stores plus loads of one instance; None when it was not built."""
+    if not use:
+        return None
+    return use.get("spill_stores", 0) + use.get("spill_loads", 0)
+
+
 def phase_build(name: str) -> dict:
     """Build every kernel source; returns ptxas_usage() of the build. The
-    redesigned bf16 kernels must not spill."""
+    redesigned tensor-core kernels must not spill."""
     from seed_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     reports = kernels.build()
@@ -186,12 +216,11 @@ def _qkv_views(gen, B, S, H, D, dtype):
 
 
 def phase_kernels(name: str, flush: torch.Tensor) -> dict:
-    """Each kernel against its plain version. Returns the per-kernel record
-    (errors and times at the main path's shape) for the final kernels line."""
+    """Kernel row 1 against its plain version, and short_mha's gradient.
+    Returns the per-kernel record (errors and times at the main path's
+    shape) for the final kernels line."""
     import torch.nn.functional as F
     from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
-    from seed_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
-    from seed_tpu_torch.ops.quantization import quantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     record = {}
@@ -248,59 +277,119 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
                  frac_equal=same, tol=tol[dtype], card=name, **timing)
     record["short_mha"]["max_abs_err"] = worst
 
-    # int8_matmul: the four (K, N) pairs of the 8B prefill at M = 4 x 64,
-    # bf16 x; plus fp32 x and a ragged M once each.
-    # Tolerance, relative to max|y|: bf16 2**-7 (one output rounding apart),
-    # fp32 1e-5 (sum order only).
+    # short_mha's gradient on the card: one call through flash_attention's
+    # short route with requires_grad (the kernel forward, the mha recompute
+    # backward) against the port's mha autograd, fp32, 3e-3 (seed_tpu's bound)
+    from seed_tpu_torch.ops.attention import mha
+    from seed_tpu_torch.ops.flash_attention import flash_attention
+    leaves = [torch.randn(1, 257, 2, 88, generator=gen, device="cuda")
+              .requires_grad_() for _ in range(3)]
+    refs = [t.detach().clone().requires_grad_() for t in leaves]
+    dout = torch.randn(1, 257, 2, 88, generator=gen, device="cuda")
+    before = short_mha.launches
+    flash_attention(*leaves).backward(dout)
+    mha(*refs).backward(dout)
+    if short_mha.launches != before + 1:
+        raise AssertionError("short_mha gradient: the forward did not launch "
+                             "the kernel")
+    errs = [(t.grad - r.grad).abs().max().item() for t, r in zip(leaves, refs)]
+    if not max(errs) <= 3e-3:
+        raise AssertionError(f"short_mha gradient: max_abs_err {errs}")
+    emit("kernels", kernel="short_mha", what="dq, dk, dv through "
+         "flash_attention's short route vs mha autograd, fp32, B=1 S=257 H=2 "
+         "D=88", max_abs_err=dict(zip(("dq", "dk", "dv"), errs)), tol=3e-3,
+         card=name)
+    return record
+
+
+def _repeat_bits(kernel: str, label: dict, run, first) -> None:
+    """A second call on the same inputs gives the same bits, or raise."""
+    if not torch.equal(run(), first):
+        raise AssertionError(f"{kernel} {label}: a second call on the same "
+                             "inputs gave other bits")
+
+
+def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
+    """Kernel row 2 against its plain version: the four (K, N) pairs of the
+    8B prefill at M = 4 x 64, bf16 x, and 4096 x 4096 at M = 512 (the
+    scheduler's bucket); fp32 x and a ragged M once each. Every case is
+    repeated bit for bit and timed beside the plain version, two library
+    yardsticks and the bound. Tolerance, relative to max|y|: bf16 2**-7 (one
+    output rounding apart), fp32 1e-5 (sum order only)."""
+    from seed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_plain,
+                                                int8_plan, _SIGNATURES)
+    from seed_tpu_torch.ops import kernels
+    from seed_tpu_torch.ops.quantization import quantize_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    smem = kernels.load("int8_matmul", _SIGNATURES).seed_int8_matmul_smem_bytes()
+    built = usage.get("int8_matmul", {})
     per_prefill = {(4096, 4096): 4 * 32, (4096, 11008): 2 * 32,
                    (11008, 4096): 32, (4096, 40320): 1}
     worst = 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, gemm_ms=0.0)
     ops_total = bytes_total = 0.0
     cases = [(256, K, N, torch.bfloat16) for (K, N) in per_prefill]
-    cases += [(256, 4096, 4096, torch.float32), (300, 4096, 11008, torch.bfloat16)]
+    cases += [(512, 4096, 4096, torch.bfloat16), (256, 4096, 4096, torch.float32),
+              (300, 4096, 11008, torch.bfloat16)]
     for M, K, N, dtype in cases:
         w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
         qw = quantize_weight(w)
         del w
         x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
-        got = int8_matmul(x, qw["kernel_q"], qw["scale"])
-        want = int8_matmul_plain(x, qw["kernel_q"], qw["scale"])
+        wq, sc = qw["kernel_q"], qw["scale"]
+        label = dict(M=M, K=K, N=N, dtype=str(dtype).split(".")[-1])
+        got = int8_matmul(x, wq, sc)
+        want = int8_matmul_plain(x, wq, sc)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
         limit = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
         if not rel <= limit:
-            raise AssertionError(f"int8_matmul M={M} K={K} N={N} {dtype}: "
-                                 f"relative error {rel} > {limit}")
+            raise AssertionError(f"int8_matmul {label}: relative error {rel} "
+                                 f"> {limit}")
+        _repeat_bits("int8_matmul", label, lambda: int8_matmul(x, wq, sc), got)
         worst = max(worst, err)
-        wq, sc = qw["kernel_q"], qw["scale"]
         ms = time_ms(lambda: int8_matmul(x, wq, sc), flush=flush)
         plain = time_ms(lambda: int8_matmul_plain(x, wq, sc), flush=flush)
         lib = time_ms(lambda: x @ wq.to(x.dtype) * sc, flush=flush)
+        # the GEMM alone, on a weight converted before the timing: a kernel
+        # whose dequant cost nothing
+        wx = wq.to(x.dtype)
+        gemm = time_ms(lambda: x @ wx, flush=flush)
+        del wx
         nbytes = M * K * dtype.itemsize + K * N + N * 4 + M * N * dtype.itemsize
         flops = 2 * M * N * K
         bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
         n = per_prefill.get((K, N), 0) if (M, dtype) == (256, torch.bfloat16) else 0
-        tot["ms"] += n * ms
-        tot["plain_ms"] += n * plain
-        tot["library_ms"] += n * lib
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("gemm_ms", gemm)):
+            tot[key] += n * val
         bytes_total += n * nbytes
         ops_total += n * flops
-        emit("kernels", kernel="int8_matmul", M=M, K=K, N=N,
-             dtype=str(dtype).split(".")[-1], max_abs_err=err, rel_err=rel,
-             tol_rel=limit, launches_per_prefill=n, card=name, ms=ms,
-             plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+        bf16 = dtype == torch.bfloat16
+        plan = int8_plan(M, N, K) if bf16 else None
+        main = built.get("int8_mm_bf16", {}) if bf16 else {}
+        emit("kernels", kernel="int8_matmul", **label, plan=plan,
+             max_abs_err=err, rel_err=rel, tol_rel=limit, repeats_bits=True,
+             launches_per_prefill=n, card=name, ms=ms, plain_ms=plain,
+             library_ms=lib, library="x @ w.to(x.dtype) * scale",
+             gemm_ms=gemm, gemm="x @ w_bf16, converted before the timing",
+             bound_ms=bms, bound_by=by, tflops=flops / ms * 1e-9,
+             registers=main.get("registers"),
+             spill_bytes=spill_bytes(main) if bf16 else None,
+             reduce_registers=built.get("int8_mm_reduce", {}).get("registers")
+             if bf16 and plan[2] > 1 else None,
+             smem_bytes=smem if bf16 else None)
         del qw, x, got, want
     # the record is per launch, averaged over one prefill's mix of shapes
     n = sum(per_prefill.values())
     bms, by = bound_ms(bytes_total / n, ops_total / n, BF16_FLOPS)
-    record["int8_matmul"] = dict(ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
-                                 library_ms=tot["library_ms"] / n, bound_ms=bms,
-                                 bound_by=by, max_abs_err=worst)
+    record = {key: val / n for key, val in tot.items()}
+    record.update(bound_ms=bms, bound_by=by, max_abs_err=worst)
     emit("kernels", kernel="int8_matmul", summary="mean per launch over one "
-         "8B prefill (225 launches)", card=name, **record["int8_matmul"])
-    return record
+         "8B prefill (225 launches)", card=name, **record)
+    return {"int8_matmul": record}
 
 
 # ------------------------------------------------- phase 2, kernel rows 3-5
@@ -470,19 +559,22 @@ W8A8_ENCODER = [(1408, 4224), (1408, 1408), (1408, 6144), (6144, 1408)]
 W8A8_LLAMA = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 40320)]
 
 
-def phase_w8a8_kernel(name: str, flush: torch.Tensor) -> dict:
+def phase_w8a8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     """Kernel row 6 against its plain version. The int32 sums are exact and
     the epilogue is two fp32 products in the plain version's order, so the
-    tolerance is one rounding of the output type: 2**-8 of max|y| in bf16,
-    2**-23 in fp32 (the results have been equal bit for bit). The library
-    yardstick is torch._int_mm plus the same epilogue (rows padded to 32
-    where M <= 16, which _int_mm refuses)."""
+    kernel must equal the plain version bit for bit (the stated tolerance,
+    one rounding of the output type, 2**-8 of max|y| in bf16 and 2**-23 in
+    fp32, is checked too), and repeat its bits. The library yardstick is
+    torch._int_mm plus the same epilogue (rows padded to 32 where M <= 16,
+    which _int_mm refuses)."""
     import torch.nn.functional as F
-    from seed_tpu_torch.ops.int8_matmul import (w8a8_epilogue, w8a8_matmul,
-                                                w8a8_matmul_plain)
+    from seed_tpu_torch.ops import kernels
+    from seed_tpu_torch.ops.int8_matmul import (_W8A8_SIGNATURES, w8a8_epilogue,
+                                                w8a8_matmul, w8a8_matmul_plain)
     from seed_tpu_torch.ops.quantization import quantize_acts, quantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    lib8 = kernels.load("w8a8_matmul", _W8A8_SIGNATURES)
     cases = [(2056, K, N, dt) for K, N in W8A8_ENCODER
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(256, K, N, dt) for K, N in W8A8_LLAMA
@@ -502,9 +594,12 @@ def phase_w8a8_kernel(name: str, flush: torch.Tensor) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
         limit = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
-        if not rel <= limit:
+        if not (rel <= limit and torch.equal(got, want)):
             raise AssertionError(f"w8a8_matmul M={M} K={K} N={N} {dtype}: "
-                                 f"relative error {rel} > {limit}")
+                                 f"relative error {rel} (limit {limit}), "
+                                 "not bit-equal to the plain version")
+        _repeat_bits("w8a8_matmul", dict(M=M, K=K, N=N, out=str(dtype)),
+                     lambda: w8a8_matmul(xq, xs, wq, ws, dtype), got)
         worst = max(worst, err)
         pad = (0, 0, 0, 32 - M) if M <= 16 else None
 
@@ -527,9 +622,14 @@ def phase_w8a8_kernel(name: str, flush: torch.Tensor) -> dict:
             tot[key] += per_encode * val
         bytes_total += per_encode * nbytes
         ops_total += per_encode * ops
+        tile = ("2/2/4/4" if M > 64 else "1/4/2/1") + (
+            "/bf16" if dtype == torch.bfloat16 else "/f32")
+        built = usage.get("w8a8_matmul", {}).get(tile, {})
         emit("kernels", kernel="w8a8_matmul", M=M, K=K, N=N,
              out=str(dtype).split(".")[-1], max_abs_err=err, rel_err=rel,
-             tol_rel=limit, bit_equal=bool(torch.equal(got, want)),
+             tol_rel=limit, bit_equal=True, repeats_bits=True,
+             instance=tile, registers=built.get("registers"),
+             spill_bytes=spill_bytes(built), smem_bytes=lib8.seed_w8a8_smem_bytes(M),
              launches_per_encode=per_encode, card=name, ms=ms, plain_ms=plain,
              library_ms=lib, library="torch._int_mm + epilogue"
              + (", rows padded to 32" if pad else ""), bound_ms=bms,
@@ -1301,15 +1401,21 @@ def phase_train(name: str) -> dict:
 
 
 def redesigned_smem_bytes() -> dict:
-    """Dynamic shared memory of one block of the bf16 kernels of rows 1 and
-    3-5 at the main path's head dims (88 and 128), as their launchers ask."""
+    """Dynamic shared memory of one block of the tensor-core kernels at the
+    main paths' shapes (head dims 88 and 128; the bf16 int8 matmul; the
+    W8A8 encode's M = 2056), as their launchers ask."""
     from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops import int8_matmul as TI
     from seed_tpu_torch.ops import kernels
     short = kernels.load("short_mha", TF._SIGNATURES)
     flash = TF._flash_lib(torch.bfloat16, 128)
+    int8 = kernels.load("int8_matmul", TI._SIGNATURES)
+    w8a8 = kernels.load("w8a8_matmul", TI._W8A8_SIGNATURES)
     return {"short_mha": short.seed_short_mha_smem_bytes(257, 88, 1),
             **{k: flash.seed_flash_smem_bytes(i, 1, 128) for i, k in
-               enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))}}
+               enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))},
+            "int8_matmul": int8.seed_int8_matmul_smem_bytes(),
+            "w8a8_matmul": w8a8.seed_w8a8_smem_bytes(2056)}
 
 
 def main() -> None:
@@ -1328,8 +1434,9 @@ def main() -> None:
     usage = phase_build(name)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     record = phase_kernels(name, flush)
+    record.update(phase_int8_kernel(name, flush, usage))
     record.update(phase_flash_kernels(name, flush))
-    record.update(phase_w8a8_kernel(name, flush))
+    record.update(phase_w8a8_kernel(name, flush, usage))
     del flush
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1398,17 +1505,19 @@ def main() -> None:
                     bound_by=record[k]["bound_by"],
                     library_ms=record[k]["library_ms"])
                for k, (source, replaces) in sources.items()]
-    # rows 1 and 3-5: nvcc's registers and spills of the bf16 kernel at the
-    # main path's padded head dim (short_mha: the exact epilogue), at every
-    # other instance, and its shared memory
+    # nvcc's registers and spills of each tensor-core kernel at the main
+    # path's instance (short_mha: padded head dim 96, the exact epilogue; the
+    # flash kernels: 128; row 2: the bf16 kernel; row 6: the 128 x 128 tile,
+    # bf16 out), at every other instance, and its shared memory
     main_dp = {"short_mha": "96/0", "flash_fwd": "128", "flash_bwd_dq": "128",
-               "flash_bwd_dkv": "128"}
+               "flash_bwd_dkv": "128", "int8_matmul": "int8_mm_bf16",
+               "w8a8_matmul": "2/2/4/4/bf16"}
     smem = redesigned_smem_bytes()
     for entry in kernels:
         k = entry["name"]
-        if k not in main_dp:
-            continue
         per_dp = usage.get(k, {})
+        if k == "int8_matmul":
+            entry["gemm_ms"] = record[k]["gemm_ms"]
         entry.update(
             ms_host_included=record[k].get("ms_host_included"),
             registers=per_dp.get(main_dp[k], {}).get("registers"),

@@ -2,8 +2,10 @@
 
     python3 profile_port.py
 
-Seeded random weights at full width, as in chip_smoke.py. Five regions:
-one SEED-tokenizer encode (exact config, B=8), one SEED-LLaMA-8B int8
+Seeded random weights at full width, as in chip_smoke.py. Six regions:
+one SEED-tokenizer encode (exact config, B=8), the same encode through the
+W8A8 encoder (quantize_for_serving + serving_fast_config, as chip_smoke.py's
+server phase runs it), one SEED-LLaMA-8B int8
 prefill (B=4 x 64 tokens, M=256), 8 decode steps (B=4), 8 decode chunks of
 the continuous-batching scheduler (16 fp8 slots, max_len 1024, 8 steps per
 chunk), and one optimizer step of SEED-LLaMA-8B + LoRA training (bf16,
@@ -86,7 +88,10 @@ def main() -> None:
         images = preprocess(raw, 224, torch.bfloat16)
         cfg = chip_smoke._flash_cfg(ST.SEED_TOKENIZER, True)
         region("encode exact B=8", lambda: ST.encode(tok, images, cfg), card)
-        del tok
+        qtok, qcfg = ST.quantize_for_serving(tok, ST.SEED_TOKENIZER)
+        qcfg = ST.serving_fast_config(qcfg)
+        region("encode W8A8 B=8", lambda: ST.encode(qtok, images, qcfg), card)
+        del tok, qtok
 
         lcfg = M.SEED_LLAMA_8B
         params = M.init_llama(gen, lcfg, torch.bfloat16,

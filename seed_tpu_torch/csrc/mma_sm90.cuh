@@ -1,15 +1,20 @@
 // Warp-level tensor-core primitives shared by the bf16 attention kernels
-// (flash_attention.cu's forward and backward, short_mha.cu): mma.sync m16n8k16 with fp32
-// accumulators in registers, ldmatrix (plain and .trans) for the operands,
-// cp.async copies of 16 bytes into shared memory, and the conversion of an
-// fp32 accumulator fragment to a bf16 A operand without a trip through
-// shared memory.
+// (flash_attention.cu's forward and backward, short_mha.cu) and the two int8
+// matmuls (int8_matmul.cu, w8a8_matmul.cu): mma.sync m16n8k16 bf16 with fp32
+// accumulators and m16n8k32 s8 with int32 accumulators, both in registers,
+// ldmatrix (plain and .trans) for the operands, cp.async copies of 16 bytes
+// into shared memory, and the conversion of an fp32 accumulator fragment to
+// a bf16 A operand without a trip through shared memory.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 (4 x b32): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                      a3 (g+8, 2t+8..)
 //   B 16x8  (2 x b32): b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
 //   C 16x8  (4 x f32): c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1)
+// and of mma.m16n8k32 s8 (four bytes a register, the lowest k first):
+//   A 16x32: a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g, 4t+16..), a3 (g+8, 4t+16..)
+//   B 32x8:  b0 (k 4t..4t+3, n g), b1 (k 4t+16..4t+19, n g)
+//   C 16x8 (4 x s32): as above
 // A row of a C fragment is spread over the four threads of a quad, so a
 // row's max or sum is the thread's own values reduced over lanes xor 1, 2.
 //
@@ -42,6 +47,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (+)= A * B, s8 inputs, s32 accumulators (no .satfinite: exact while
+// every partial sum stays inside int32).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

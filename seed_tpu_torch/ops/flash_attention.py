@@ -3,7 +3,8 @@ seed_tpu/ops/flash_attention.py).
 
 ``short_mha`` is the hand-written CUDA kernel that replaces seed_tpu's
 ``_short_mha_kernel`` (csrc/short_mha.cu): non-causal whole-sequence
-attention for the ViT's S=257.
+attention for the ViT's S=257. Its gradient recomputes through ``mha``, the
+rule of seed_tpu's ``_short_mha`` custom_vjp.
 
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` are the hand-written
 CUDA kernels (csrc/flash_attention.cu) that replace seed_tpu's
@@ -98,14 +99,10 @@ def short_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              sm_scale: float, exact: bool = False) -> torch.Tensor:
-    """Non-causal attention over a whole short sequence, q/k/v [B, S, H, D]
-    (any strides with a unit stride on D) -> contiguous [B, Sq, H, D].
-
-    CPU tensors take :func:`short_mha_plain`; CUDA tensors launch the
-    kernel of csrc/short_mha.cu (bf16: tensor cores, recomputed scores per
-    pass; fp32: FMA units) or raise."""
+def _short_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       sm_scale: float, exact: bool) -> torch.Tensor:
+    """The forward of :func:`short_mha`: the plain version for a CPU tensor,
+    the kernel for a CUDA tensor (counted in ``short_mha.launches``)."""
     if q.device.type == "cpu":
         return short_mha_plain(q, k, v, sm_scale, exact)
     if q.device.type != "cuda":
@@ -144,6 +141,38 @@ def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels.check(err, "short_mha")
     short_mha.launches += 1
     return out
+
+
+class _ShortMHA(torch.autograd.Function):
+    """The short kernel (its plain version on the CPU) with seed_tpu's
+    ``_short_mha`` gradient rule: the backward recomputes through ``mha``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale, exact):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return _short_mha_forward(q, k, v, sm_scale, exact)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            ref = mha(*qkv, scale=ctx.sm_scale)
+            grads = torch.autograd.grad(ref, qkv, dout)
+        return (*grads, None, None)
+
+
+def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              sm_scale: float, exact: bool = False) -> torch.Tensor:
+    """Non-causal attention over a whole short sequence, q/k/v [B, S, H, D]
+    (any strides with a unit stride on D) -> contiguous [B, Sq, H, D].
+    Differentiable: the gradient recomputes through ``mha``, as seed_tpu's
+    ``_short_mha`` does.
+
+    CPU tensors take :func:`short_mha_plain`; CUDA tensors launch the
+    kernel of csrc/short_mha.cu (bf16: tensor cores, recomputed scores per
+    pass; fp32: FMA units) or raise."""
+    return _ShortMHA.apply(q, k, v, sm_scale, exact)
 
 
 short_mha.launches = 0

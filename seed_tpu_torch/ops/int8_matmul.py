@@ -8,6 +8,8 @@
 to x's type on chip, so device memory only ever holds them as int8. On a CPU
 tensor it runs ``int8_matmul_plain``; on a CUDA tensor it launches the kernel
 or raises. ``layers.linear`` routes to it under seed_tpu's ``can_use_kernel``.
+``int8_plan`` picks the bf16 kernel's tile and its split of K (the 8B's
+prefill shapes have too few output tiles to fill the card on their own).
 
 ``w8a8_matmul`` is the hand-written kernel that replaces seed_tpu's
 ``_w8a8_kernel`` (csrc/w8a8_matmul.cu): int8 activations times int8 weights on
@@ -20,7 +22,7 @@ by 128 to it (a superset of seed_tpu's ``can_use_w8a8_kernel``).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -28,12 +30,23 @@ from . import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    "seed_int8_matmul": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    "seed_int8_matmul": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p]),
+    "seed_int8_matmul_smem_bytes": [],
 }
+
+# Launch plan of csrc/int8_matmul.cu. bf16 x: one 128 x 128 tile, two blocks
+# resident per SM; fp32 x: the FMA kernel's 64 x 64 tile, never split.
+SMS = 132                  # streaming multiprocessors of the H100 SXM
+BLOCKS_PER_SM = 2
+BF16_TILE = (128, 128)
+F32_TILE = (64, 64)
+K_CHUNK = 128              # a split covers whole chunks of K
+MAX_SPLIT = 8
 _W8A8_SIGNATURES = {
     "seed_w8a8_matmul": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                          + [ctypes.c_void_p]),
+    "seed_w8a8_smem_bytes": [ctypes.c_int],
 }
 
 
@@ -46,12 +59,45 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scale.float()).to(x.dtype)
 
 
+def int8_plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
+    """(tile_m, tile_n, split) of the bf16 kernel for x [M, K] @ w [K, N].
+
+    When the output tiles fall short of one wave (two blocks on each of the
+    132 SMs), K is split into runs of whole 128-wide chunks, each run a block
+    of its own: the split that minimises waves x work per block, the smallest
+    on a tie, at most 8 and at most one run per chunk. Each split writes an
+    fp32 partial (:func:`int8_workspace`); a second kernel sums them in split
+    order."""
+    tile_m, tile_n = BF16_TILE
+    tiles = -(-M // tile_m) * (N // tile_n)
+    slots = SMS * BLOCKS_PER_SM
+    if tiles >= slots:
+        return tile_m, tile_n, 1
+    cost = lambda s: -(-tiles * s // slots) / s
+    splits = range(1, min(MAX_SPLIT, K // K_CHUNK) + 1)
+    return tile_m, tile_n, min(splits, key=lambda s: (cost(s), s))
+
+
+def int8_split_bounds(K: int, split: int) -> List[Tuple[int, int]]:
+    """The K range [begin, end) of each split, as the kernel cuts it: split s
+    takes chunks [s c / split, (s + 1) c / split) of the c = K / 128."""
+    chunks = K // K_CHUNK
+    return [(s * chunks // split * K_CHUNK, (s + 1) * chunks // split * K_CHUNK)
+            for s in range(split)]
+
+
+def int8_workspace(M: int, N: int, split: int) -> int:
+    """fp32 elements of the split partials: split x [M, N], none unsplit."""
+    return split * M * N if split > 1 else 0
+
+
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """x [M, K] (bf16/f32), w_q [K, N] int8, scale [N] f32 -> [M, N] x.dtype.
 
     CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
-    kernel of csrc/int8_matmul.cu or raise."""
+    kernel of csrc/int8_matmul.cu (bf16 x: on :func:`int8_plan`'s tile and
+    split) or raise."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q, scale)
     if x.device.type != "cuda":
@@ -75,13 +121,21 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("int8_matmul: x, w_q and scale must be contiguous")
     if x.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("int8_matmul: x and w_q must be 16-byte aligned")
+    if x.dtype == torch.bfloat16:
+        tile_m, tile_n, split = int8_plan(M, N, K)
+    else:
+        (tile_m, tile_n), split = F32_TILE, 1
     lib = kernels.load("int8_matmul", _SIGNATURES)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    workspace = torch.empty(int8_workspace(M, N, split), dtype=torch.float32,
+                            device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.seed_int8_matmul(x.data_ptr(), w_q.data_ptr(),
                                    scale.data_ptr(), out.data_ptr(),
-                                   M, N, K, _DTYPES[x.dtype], stream)
+                                   workspace.data_ptr() or None, M, N, K,
+                                   tile_m, tile_n, split, _DTYPES[x.dtype],
+                                   stream)
     kernels.check(err, "int8_matmul")
     int8_matmul.launches += 1
     return out

@@ -10,6 +10,8 @@ import torch
 
 from seed_tpu_torch.models import layers as L
 from seed_tpu_torch.ops import flash_attention as TF
+from seed_tpu_torch.ops import int8_matmul as TI
+from seed_tpu_torch.ops.attention import mha
 from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
 from seed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_plain,
                                             w8a8_matmul, w8a8_matmul_plain)
@@ -51,20 +53,63 @@ def test_short_mha_kernel_matches_plain(gen, dtype, exact, D, S):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 256, 300])
-def test_int8_matmul_kernel_matches_plain(gen, dtype, M):
-    """Tolerance relative to max|y|: fp32 1e-5, bf16 2**-7."""
-    K, N = 512, 384
+# (M, K, N): a narrow product at decode, prefill and ragged M; the four 8B
+# prefill shapes at M = 256 (the plan splits K at three of them) and
+# 4096 x 4096 at M = 512 (the scheduler's bucket); one K step of 128
+INT8_CASES = [(1, 512, 384), (256, 512, 384), (300, 512, 384),
+              (256, 4096, 4096), (256, 4096, 11008), (256, 11008, 4096),
+              (256, 4096, 40320), (512, 4096, 4096), (256, 128, 256)]
+
+
+def _int8_inputs(gen, M, K, N, dtype):
     qw = quantize_weight(torch.randn(K, N, generator=gen, device="cuda") * 0.02)
     x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    return x, qw["kernel_q"], qw["scale"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", INT8_CASES)
+def test_int8_matmul_kernel_matches_plain(gen, dtype, M, K, N):
+    """Tolerance relative to max|y|: fp32 1e-5, bf16 2**-7."""
+    x, wq, sc = _int8_inputs(gen, M, K, N, dtype)
     before = int8_matmul.launches
-    got = int8_matmul(x, qw["kernel_q"], qw["scale"])
+    got = int8_matmul(x, wq, sc)
     assert int8_matmul.launches == before + 1
-    want = int8_matmul_plain(x, qw["kernel_q"], qw["scale"])
+    want = int8_matmul_plain(x, wq, sc)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+def _plan_split(monkeypatch, split):
+    """Make the wrapper launch with ``split`` in place of int8_plan's."""
+    monkeypatch.setattr(TI, "int8_plan", lambda M, N, K: (*TI.BF16_TILE, split))
+
+
+@pytest.mark.parametrize("split", range(1, TI.MAX_SPLIT + 1))
+def test_int8_matmul_every_split_matches_plain(gen, monkeypatch, split):
+    """K = 11008 (86 chunks of 128: ragged runs unless the split divides
+    86) with a ragged M, under every split the plan can choose; bf16, 2**-7
+    of max|y|."""
+    x, wq, sc = _int8_inputs(gen, 300, 11008, 256, torch.bfloat16)
+    _plan_split(monkeypatch, split)
+    got = int8_matmul(x, wq, sc)
+    want = int8_matmul_plain(x, wq, sc)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+def test_int8_matmul_refuses_a_bad_plan(gen, monkeypatch):
+    """The C entry point checks the plan: no split of zero, no run shorter
+    than one 128-wide chunk, only the built tile."""
+    x, wq, sc = _int8_inputs(gen, 256, 512, 384, torch.bfloat16)
+    for split in (0, 5):
+        _plan_split(monkeypatch, split)
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            int8_matmul(x, wq, sc)
+    monkeypatch.setattr(TI, "int8_plan", lambda M, N, K: (64, 128, 1))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        int8_matmul(x, wq, sc)
 
 
 # the four encoder shapes at B=8 (M = 8 x 257), the four 8B shapes at M = 256,
@@ -250,6 +295,30 @@ def test_kernels_raise_instead_of_falling_back(gen):
         TF.flash_fwd(x, x[:, :, :1], x[:, :, :1], True, 1.0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_short_route_gradients_match_mha(gen, dtype):
+    """q, k and v get their gradients through flash_attention's short
+    non-causal route (one short_mha launch forward, the mha recompute
+    backward) at the ViT's S=257, D=88: against the port's mha autograd,
+    within 3e-3 (seed_tpu's bound) in fp32 and 2**-5 of the largest
+    gradient in bf16."""
+    B, S, H, D = 1, 257, 2, 88
+    leaves = [torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+              .requires_grad_() for _ in range(3)]
+    refs = [t.detach().clone().requires_grad_() for t in leaves]
+    dout = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    before = short_mha.launches
+    out = TF.flash_attention(*leaves)
+    assert short_mha.launches == before + 1 and out.grad_fn is not None
+    out.backward(dout)
+    mha(*refs).backward(dout)
+    for t, r in zip(leaves, refs):
+        assert t.grad is not None and t.grad.dtype == dtype
+        err = (t.grad.float() - r.grad.float()).abs().max().item()
+        tol = 3e-3 if dtype == torch.float32 else 2.0 ** -5 * r.grad.float().abs().max().item()
+        assert err <= tol
+
+
 def test_linear_routes_prefill_to_the_kernel(gen):
     p = quantize_weight(torch.randn(256, 384, generator=gen, device="cuda"))
     before = int8_matmul.launches
@@ -269,11 +338,22 @@ def _bwd_args(gen, S, H, D, B=2):
 
 
 @pytest.mark.parametrize("kernel", ["flash_fwd", "short_mha", "flash_bwd_dq",
-                                    "flash_bwd_dkv"])
+                                    "flash_bwd_dkv", "int8_matmul",
+                                    "w8a8_matmul"])
 def test_bf16_kernels_repeat_bit_for_bit(gen, kernel):
-    """No atomics and no split over kv: two calls on the same inputs give
-    the same bits (training's resume check depends on it)."""
-    if kernel == "flash_fwd":
+    """No atomics, no split over kv, and int8_matmul's split of K summed in
+    a fixed order: two calls on the same inputs give the same bits
+    (training's resume check depends on it)."""
+    if kernel == "int8_matmul":
+        x, wq, sc = _int8_inputs(gen, 256, 11008, 4096, torch.bfloat16)
+        run = lambda: (int8_matmul(x, wq, sc),)
+    elif kernel == "w8a8_matmul":
+        qw = quantize_weight(torch.randn(1408, 4224, generator=gen,
+                                         device="cuda") * 0.02)
+        xq, xs = quantize_acts(torch.randn(2056, 1408, generator=gen,
+                                           device="cuda") * 3)
+        run = lambda: (w8a8_matmul(xq, xs, qw["kernel_q"], qw["scale"]),)
+    elif kernel == "flash_fwd":
         q, k, v = _flash_inputs(gen, 1024, 1024, 4, 128, torch.bfloat16)
         run = lambda: TF.flash_fwd(q, k, v, True, 128 ** -0.5)
     elif kernel in ("flash_bwd_dq", "flash_bwd_dkv"):

@@ -18,6 +18,7 @@ from seed_tpu.train import next_token_loss as j_next_token_loss
 from seed_tpu_torch import bridge
 from seed_tpu_torch.models import llama as TM
 from seed_tpu_torch.ops import flash_attention as TF
+from seed_tpu_torch.ops.attention import mha
 from seed_tpu_torch.train import next_token_loss as t_next_token_loss
 
 # (name, Sq, Sk, H, D, causal, q_offset)
@@ -120,6 +121,43 @@ def test_gradients_match_pallas_backward(name, Sq, Sk, H, D, causal, off):
     (TF.tiled_flash(*leaves, causal, D ** -0.5, off) ** 2).sum().backward()
     for t, w in zip(leaves, want):
         np.testing.assert_allclose(f32(t.grad), f32(w), atol=3e-3, rtol=3e-3)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_short_mha_gradients_match_pallas_custom_vjp(exact):
+    """dq, dk, dv of sum(O**2) through the port's short_mha (its autograd
+    function: the plain forward on the CPU, the mha recompute backward)
+    against jax.grad through seed_tpu's _short_mha custom_vjp (the Pallas
+    kernel in interpret mode, the mha backward), at the ViT's S=257, D=88,
+    fp32, within 3e-3 (seed_tpu's own bound). The output carries the
+    function's grad_fn."""
+    B, S, H, D = 1, 257, 2, 88
+    arrays = qkv(S, S, H, D, B)
+
+    def loss(q, k, v):
+        return jnp.sum(JF._short_mha(q, k, v, D ** -0.5, exact) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*as_jax(arrays))
+    leaves = [t.requires_grad_() for t in as_torch(arrays)]
+    out = TF.short_mha(*leaves, D ** -0.5, exact)
+    assert type(out.grad_fn).__name__ == "_ShortMHABackward"
+    (out ** 2).sum().backward()
+    for t, w in zip(leaves, want):
+        np.testing.assert_allclose(f32(t.grad), f32(w), atol=3e-3, rtol=3e-3)
+
+
+def test_flash_attention_short_route_is_differentiable():
+    """flash_attention's short non-causal route (S=257) gives q, k and v the
+    gradient of the plain mha path, and counts no launch on the CPU."""
+    arrays = qkv(257, 257, 2, 88)
+    before = TF.short_mha.launches
+    leaves = [t.requires_grad_() for t in as_torch(arrays)]
+    TF.flash_attention(*leaves).sum().backward()
+    refs = [t.detach().clone().requires_grad_() for t in leaves]
+    mha(*refs).sum().backward()
+    assert TF.short_mha.launches == before
+    for t, r in zip(leaves, refs):
+        np.testing.assert_allclose(f32(t.grad), f32(r.grad), atol=1e-5, rtol=1e-5)
 
 
 def test_gradients_gqa_sum_over_repeated_heads():
