@@ -34,10 +34,18 @@ Phases, each printing lines of its own:
              flash forward, dq and dk/dv kernels; AdamW, cosine schedule with
              warm-up; three steps, a saved state, and a fourth step from a
              fresh trainer that restored it.
+8. detokenize — the SD2.1 unCLIP de-tokenizer (UNet + VAE, seeded weights),
+             run after phase 6 on its objects (phase 6's /generate service
+             already has it attached): one UNet pass in bf16 against fp32;
+             encode -> 8B int8 generate (force_image) -> a valid image block
+             appended -> SeedLlamaInterface.split_output -> 768x768 pixels
+             through the offloaded bf16 decoder (20 DDIM steps, guidance 10)
+             -> PNG; the same decode in fp32 against bf16.
 
 Phases 4-5 (serving), phase 6 (the throughput server) and phase 7 (training)
 are the main paths: the launch counters of a path's kernels are set to 0 just
-before it and read just after.
+before it and read just after. Phase 8 launches none of the six kernels (its
+lines show the counts) and is counted on no path.
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
 one before that the card.
@@ -1086,15 +1094,17 @@ def phase_scheduler(name: str, params):
     return se
 
 
-def phase_http(name: str, se, qparams, qcfg) -> None:
+def phase_http(name: str, se, qparams, qcfg, decoder) -> None:
     """The /generate service in-process on an ephemeral port: the scheduled
-    engine behind SeedLlamaInterface with the W8A8 tokenizer."""
+    engine behind SeedLlamaInterface with the W8A8 tokenizer and the unCLIP
+    de-tokenizer attached (``decoder``), as ``--diffusion-ckpt`` builds it."""
     from PIL import Image
     from seed_tpu_torch import IMG_FLAG
     from seed_tpu_torch.ops.int8_matmul import w8a8_matmul
     from seed_tpu_torch.serving.multimodal import SeedLlamaInterface
     from seed_tpu_torch.serving.server import GenerateService, make_server
-    service = GenerateService(SeedLlamaInterface(se, qparams, qcfg))
+    service = GenerateService(SeedLlamaInterface(se, qparams, qcfg,
+                                                 diffusion=decoder))
     server = make_server(service, host="127.0.0.1", port=0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1146,10 +1156,19 @@ def phase_http(name: str, se, qparams, qcfg) -> None:
         raise AssertionError(f"http: a mismatched {IMG_FLAG} count answered {bad}")
     if encoded != 4 * qcfg.vit.depth:       # one pixel image, one encode
         raise AssertionError(f"http: w8a8_matmul launched {encoded} times")
-    emit("http", what="POST /generate: a base64 PNG; cached ids + force_boi; a "
-         "mismatched <image> count", seconds=[s0, s1],
+    # a generated block that closed validly comes back as a 768 x 768 PNG
+    pngs = [b64 for body in (png, boi) for b64 in body["images"] if b64]
+    for b64 in pngs:
+        img = Image.open(io.BytesIO(base64.b64decode(b64)))
+        if img.format != "PNG" or img.size != (768, 768) or img.mode != "RGB":
+            raise AssertionError(f"http: an image came back as {img.format} "
+                                 f"{img.size} {img.mode}")
+    emit("http", what="POST /generate with the unCLIP de-tokenizer attached: "
+         "a base64 PNG; cached ids + force_boi; a mismatched <image> count",
+         seconds=[s0, s1],
          text_chars=[len(png["text"]), len(boi["text"])],
          images=[len(png["images"]), len(boi["images"])],
+         pngs_returned=len(pngs),
          error_msg=[png["error_msg"], boi["error_msg"], bad["error_msg"]],
          w8a8_matmul_launches=encoded, card=name)
 
@@ -1228,6 +1247,224 @@ def phase_caches_and_beam(name: str, params, tok_params, codes) -> None:
     emit("beam", what="num_beams=5 caption-style request, bf16 ring cache",
          prompt_tokens=len(prompt), new_tokens=len(best), seconds=seconds,
          ms_per_step=seconds / 16 * 1e3, card=name)
+
+
+# --------------------------------------------------------------- phase 8
+
+# One full-width UNet pass in bf16 (weights and activations) against the
+# same pass in fp32 with TF32 off: the largest difference within 5e-2 of the
+# fp32 output's largest magnitude. The CPU tests' SD-like UNet (3 levels,
+# head dim 64, 32 groups) gives 1.2e-2; SD2.1 is one level and 640 channels
+# deeper.
+UNET_BF16_TOL = 5e-2
+# The 20-step decode in bf16 against fp32 on the same embedding and
+# latents, pixels in [0, 1]: the mean absolute difference within 0.1. The
+# two precisions compute one function; 20 guided steps (guidance 10 scales
+# the difference of the two CFG halves tenfold) carry the UNet's bf16 error
+# into the latents, so the pixels differ in place, not on average.
+PIXEL_MEAN_TOL = 0.1
+
+
+def _launch_counts() -> dict:
+    """The launch counters of the six kernels."""
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops.int8_matmul import int8_matmul, w8a8_matmul
+    return {fn.__name__: fn.launches for fn in (
+        TF.short_mha, int8_matmul, TF.flash_fwd, TF.flash_bwd_dq,
+        TF.flash_bwd_dkv, w8a8_matmul)}
+
+
+def _launched_since(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _launch_counts().items()}
+
+
+def init_unclip_full(name: str):
+    """The SD2.1 unCLIP de-tokenizer (UNet + VAE decoder) with seeded random
+    weights on the card: fp32, and its bf16 copy that serving decodes with."""
+    from seed_tpu_torch.models.unclip import SD21_UNCLIP, init_unclip
+    from seed_tpu_torch.utils.tree import leaves
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    p32 = init_unclip(gen, SD21_UNCLIP, torch.float32)
+    p16 = _cast(p32, torch.bfloat16)
+    torch.cuda.synchronize()
+    count = lambda tree: sum(t.numel() for t in leaves(tree))
+    emit("detokenize", what="init SD21_UNCLIP fp32 and its bf16 copy",
+         seconds=time.perf_counter() - t0, unet_params=count(p32["unet"]),
+         vae_params=count(p32["vae"]),
+         bf16_gib=sum(t.numel() * 2 for t in leaves(p16)) / 2 ** 30,
+         gib_allocated=torch.cuda.memory_allocated() / 2 ** 30, card=name)
+    return p32, p16
+
+
+def phase_unet_pass(name: str, p32, p16) -> None:
+    """One SD2.1 UNet pass at the decode's shape (CFG batch 2 at 96x96x4, a
+    [2, 77, 1024] context, the first DDIM timestep) in bf16 and in fp32."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from seed_tpu_torch.models.unclip import (SD21_UNCLIP,
+                                              noise_image_embeddings,
+                                              unet_apply)
+    cfg = SD21_UNCLIP
+    n = cfg.latent_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    lat = torch.randn((2, n, n, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, cfg.text_ctx_len, cfg.text_ctx_dim), generator=gen,
+                      device="cuda")
+    emb = torch.randn((1, cfg.image_embed_dim), generator=gen, device="cuda")
+    out, ms, transient = {}, {}, {}
+    before = _launch_counts()
+    with torch.inference_mode():
+        cond = noise_image_embeddings(p32, emb, 0, None, cfg)
+        labels = torch.cat([torch.zeros_like(cond), cond])
+        t = torch.full((2,), 951, dtype=torch.int32, device="cuda")
+        for label, p, dtype in (("fp32", p32, torch.float32),
+                                ("bf16", p16, torch.bfloat16)):
+            args = (p["unet"], lat.to(dtype), t, ctx.to(dtype),
+                    labels.to(dtype), cfg.unet)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out[label] = unet_apply(*args).float()
+            torch.cuda.synchronize()
+            transient[label] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            ms[label] = time_ms(lambda: unet_apply(*args), iters=3)
+        with FlopCounterMode(display=False) as counter:
+            unet_apply(*args)
+    launched = _launched_since(before)
+    flops = counter.get_total_flops()
+    ref = out["fp32"]
+    if out["bf16"].shape != (2, n, n, 4) or not out["bf16"].isfinite().all():
+        raise AssertionError("UNet pass: bad bf16 output")
+    rel = ((out["bf16"] - ref).abs().max() / ref.abs().max()).item()
+    if not (math.isfinite(rel) and rel <= UNET_BF16_TOL):
+        raise AssertionError(f"UNet pass: bf16 differs from fp32 by {rel} of "
+                             f"the output's scale (bound {UNET_BF16_TOL})")
+    if any(launched.values()):
+        raise AssertionError(f"UNet pass launched a kernel: {launched}")
+    emit("detokenize", what="one SD21 UNet pass, CFG batch 2 at 96x96x4, "
+         "context [2, 77, 1024], t=951; fp32 with TF32 off", ms_bf16=ms["bf16"],
+         ms_fp32=ms["fp32"], gflop=flops / 1e9,
+         tflop_per_s_bf16=flops / ms["bf16"] / 1e9,
+         bound_ms_bf16=flops / BF16_FLOPS * 1e3,
+         rel_err_bf16_vs_fp32=rel, tol=UNET_BF16_TOL,
+         transient_gib=transient,
+         level0_mha_scores_gib=2 * 5 * (n * n) ** 2 * 4 / 2 ** 30,
+         kernel_launches=launched, card=name)
+
+
+class _Recorder:
+    """An engine that keeps the ids of its last generation."""
+
+    def __init__(self, engine):
+        self.engine, self.last = engine, None
+
+    def generate(self, prompts, gen, seed: int = 0):
+        out = self.engine.generate(prompts, gen, seed=seed)
+        self.last = out[0]
+        return out
+
+
+def phase_detokenize(name: str, params, tok_params, codes: torch.Tensor,
+                     p32, decoder) -> None:
+    """encode -> generate -> pixels through SeedLlamaInterface with the
+    unCLIP decoder attached (bf16, offloaded, 20 steps, guidance 10), and the
+    same 20-step decode in fp32."""
+    from PIL import Image
+    from seed_tpu_torch import BOI_TOKEN_ID
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.models.unclip import (SD21_UNCLIP, decode_to_images,
+                                              generate_latents)
+    from seed_tpu_torch.serving.engine import GenerationConfig, LlamaEngine
+    from seed_tpu_torch.serving.multimodal import (ByteTextTokenizer,
+                                                   SeedLlamaInterface,
+                                                   image_ids_to_tokens)
+    from seed_tpu_torch.serving.server import encode_image_b64
+    cfg = SD21_UNCLIP
+    side = cfg.latent_size * cfg.vae.upscale
+    engine = _Recorder(LlamaEngine(params, M.SEED_LLAMA_8B, max_len=512))
+    iface = SeedLlamaInterface(engine, tok_params, ST.SEED_TOKENIZER,
+                               ByteTextTokenizer(), diffusion=decoder)
+    edit = [codes[1].tolist(), codes[2].tolist(),
+            "Can you make the first picture look like the second one?"]
+    t0 = time.perf_counter()
+    iface.generate(edit, GenerationConfig(max_new_tokens=24, do_sample=False),
+                   force_image=True)
+    generate_s = time.perf_counter() - t0
+    if engine.last[0] != BOI_TOKEN_ID:
+        raise AssertionError("detokenize: force_image did not force BOI")
+
+    # the generated stream with a valid block appended: the 32 ids that
+    # phase 4's encode gave its first image
+    block = codes[0].tolist()
+    stream = list(engine.last) + image_ids_to_tokens(block)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    segments = iface.split_output(stream)
+    split_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    launched = _launched_since(before)
+    images = [s for s in segments if s.kind == "image"]
+    if not images or images[-1].image_codes.tolist() != [block]:
+        raise AssertionError("detokenize: the appended block did not come "
+                             f"back as an image: {[s.kind for s in segments]}")
+    seg = images[-1]
+    img = seg.image
+    if (seg.image_embedding is not None or img is None
+            or img.shape != (1, side, side, 3) or img.dtype != np.float32
+            or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1):
+        raise AssertionError(f"detokenize: bad image segment "
+                             f"{getattr(img, 'shape', None)}")
+    png = Image.open(io.BytesIO(base64.b64decode(encode_image_b64(img[0]))))
+    if png.format != "PNG" or png.size != (side, side) or png.mode != "RGB":
+        raise AssertionError(f"detokenize: PNG {png.format} {png.size} {png.mode}")
+    if any(launched.values()):
+        raise AssertionError(f"detokenize launched a kernel: {launched}")
+
+    # the same decode, part by part, then in fp32 on the same embedding and
+    # latents
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        emb, embed_s = timed(lambda: ST.decode_embedding(
+            tok_params, codes[:1], ST.SEED_TOKENIZER).float())
+        p, swap_s = timed(decoder._params.acquire)
+        try:
+            lat, unet_s = timed(lambda: generate_latents(
+                p, emb, decoder.latents, cfg, 20, 10.0))
+            img16, vae_s = timed(lambda: decode_to_images(p, lat, cfg).float())
+        finally:
+            decoder._params.release()
+        del p, lat
+        img32, fp32_s = timed(lambda: decode_to_images(p32, generate_latents(
+            p32, emb, decoder.latents.float(), cfg, 20, 10.0), cfg))
+    got = torch.from_numpy(img).cuda()
+    repeat = (img16 - got).abs().max().item()
+    diff = (img32 - got).abs()
+    max_d, mean_d = diff.max().item(), diff.mean().item()
+    if not (math.isfinite(mean_d) and mean_d <= PIXEL_MEAN_TOL):
+        raise AssertionError(f"detokenize: fp32 and bf16 pixels differ by "
+                             f"{mean_d} on average (bound {PIXEL_MEAN_TOL})")
+    emit("detokenize", what="encode -> 8B int8 generate (force_image) -> a "
+         "valid block appended -> split_output -> pixels (bf16 decoder, "
+         "offload, 20 DDIM steps, guidance 10)", generate_seconds=generate_s,
+         generated_tokens=len(engine.last), decode_seconds=split_s,
+         decode_split_seconds={"decode_embedding": embed_s, "swap_in": swap_s,
+                               "unet_20_steps": unet_s, "vae": vae_s},
+         decode_peak_gib_over_resident=peak_gib, image=list(img.shape),
+         png=list(png.size), repeat_max_abs_diff=repeat,
+         kernel_launches=launched, card=name)
+    emit("detokenize", what="the 20-step decode in fp32 (TF32 off) against "
+         "bf16, same embedding and latents", fp32_seconds=fp32_s,
+         max_abs_pixel_diff=max_d, mean_abs_pixel_diff=mean_d,
+         mean_tol=PIXEL_MEAN_TOL, card=name)
 
 
 # --------------------------------------------------------------- phase 7
@@ -1427,6 +1664,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.models.unclip import SD21_UNCLIP, UnCLIPDecoder
     from seed_tpu_torch.ops.flash_attention import short_mha
     from seed_tpu_torch.ops.int8_matmul import int8_matmul, w8a8_matmul
 
@@ -1470,8 +1708,10 @@ def main() -> None:
         fn.launches = 0
     qparams, qcfg = phase_w8a8_encode(name, tok_params, raw)
     engine = phase_scheduler(name, llama_int8)
+    unclip32, unclip16 = init_unclip_full(name)
+    decoder = UnCLIPDecoder(unclip16, SD21_UNCLIP, offload=True)
     try:
-        phase_http(name, engine, qparams, qcfg)
+        phase_http(name, engine, qparams, qcfg, decoder)
     finally:
         engine.close()
     del engine, qparams
@@ -1479,6 +1719,11 @@ def main() -> None:
     phase_caches_and_beam(name, llama_int8, tok_params, codes)
     for kernel, n in read_and_check("server", server_kernels).items():
         launches[kernel] = launches.get(kernel, 0) + n
+
+    # the de-tokenizer: no kernel of the six, and no path's count
+    phase_unet_pass(name, unclip32, unclip16)
+    phase_detokenize(name, llama_int8, tok_params, codes, unclip32, decoder)
+    del unclip32, unclip16, decoder
     del tok_params, codes, raw, llama_int8
     torch.cuda.empty_cache()
     # the training path: phase_train zeroes its kernels' counters itself

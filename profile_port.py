@@ -2,10 +2,12 @@
 
     python3 profile_port.py
 
-Seeded random weights at full width, as in chip_smoke.py. Six regions:
+Seeded random weights at full width, as in chip_smoke.py. Seven regions:
 one SEED-tokenizer encode (exact config, B=8), the same encode through the
 W8A8 encoder (quantize_for_serving + serving_fast_config, as chip_smoke.py's
-server phase runs it), one SEED-LLaMA-8B int8
+server phase runs it), the de-tokenizer's unit of work (one SD2.1 UNet pass
+at B=1, a CFG batch of 2 at 96x96x4, and one VAE decode to 768x768, bf16;
+a decode is 20 such passes and one VAE decode), one SEED-LLaMA-8B int8
 prefill (B=4 x 64 tokens, M=256), 8 decode steps (B=4), 8 decode chunks of
 the continuous-batching scheduler (16 fp8 slots, max_len 1024, 8 steps per
 chunk), and one optimizer step of SEED-LLaMA-8B + LoRA training (bf16,
@@ -92,6 +94,26 @@ def main() -> None:
         qcfg = ST.serving_fast_config(qcfg)
         region("encode W8A8 B=8", lambda: ST.encode(qtok, images, qcfg), card)
         del tok, qtok
+
+        from seed_tpu_torch.models.unclip import (SD21_UNCLIP, decode_to_images,
+                                                  init_unclip, unet_apply)
+        ucfg = SD21_UNCLIP
+        unclip = init_unclip(gen, ucfg, torch.bfloat16)
+        n = ucfg.latent_size
+        lat = torch.randn((2, n, n, 4), generator=gen, device="cuda").bfloat16()
+        ctx = torch.randn((2, ucfg.text_ctx_len, ucfg.text_ctx_dim),
+                          generator=gen, device="cuda").bfloat16()
+        labels = torch.randn((2, 2 * ucfg.image_embed_dim), generator=gen,
+                             device="cuda").bfloat16()
+        t = torch.full((2,), 951, dtype=torch.int32, device="cuda")
+
+        def detokenize():
+            unet_apply(unclip["unet"], lat, t, ctx, labels, ucfg.unet)
+            decode_to_images(unclip, lat[:1], ucfg)
+
+        region("detokenize: one UNet pass (CFG batch 2 at 96x96x4) + one VAE "
+               "decode to 768x768, bf16", detokenize, card, reps=3, top_n=12)
+        del unclip
 
         lcfg = M.SEED_LLAMA_8B
         params = M.init_llama(gen, lcfg, torch.bfloat16,

@@ -5,12 +5,16 @@ The layout mirrors ``seed_tpu`` so each function has a counterpart of the same
 name there:
 
 - ``seed_tpu_torch.models``  — EVA-ViT, causal Q-Former, VQ codebook, SEED
-  tokenizer, LLaMA decoder + KV cache (plain functions over dicts of tensors)
+  tokenizer, LLaMA decoder + KV cache, the unCLIP de-tokenizer
+  (``models.unclip``: DDIM UNet + VAE) (plain functions over dicts of
+  tensors)
 - ``seed_tpu_torch.ops``     — attention, the CUDA kernels and their plain
   PyTorch versions, int8 quantization, preprocessing, sampling
 - ``seed_tpu_torch.serving`` — generation engine, continuous-batching
   scheduler, interleaved image/text API, the /generate HTTP service
 - ``seed_tpu_torch.bridge``  — ``seed_tpu`` param trees (as numpy) -> tensors
+- ``seed_tpu_torch.convert`` — released PyTorch checkpoints -> the port's
+  trees (``python3 -m seed_tpu_torch.convert``)
 
 The package imports torch, numpy and the standard library only. Entry points
 run on the card (``device="cuda"``) unless the caller asks for the CPU.

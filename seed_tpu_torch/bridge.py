@@ -18,6 +18,11 @@ not import JAX) and returns the port's tree of tensors:
 ``lora_from_seed_tpu`` does the same for a LoRA adapter tree
 (seed_tpu/train/lora.py), whose adapters are keyed by the path of the kernel
 they adapt.
+
+``unclip_from_seed_tpu`` carries an unCLIP de-tokenizer tree
+(seed_tpu/models/unclip): its ``blocks`` and CLIP ``layers`` are Python
+lists in seed_tpu, not stacked trees, and stay lists; its conv kernels go
+from seed_tpu's HWIO to torch's OIHW (``convs_to_oihw``).
 """
 from __future__ import annotations
 
@@ -93,3 +98,26 @@ def lora_from_seed_tpu(lora: Any, device="cuda") -> Any:
             adapters[layer_name] = {"a": _tensor(a[i], device),
                                     "b": _tensor(b[i], device)}
     return {"adapters": adapters, "scale": _tensor(lora["scale"], device)}
+
+
+def convs_to_oihw(tree: Any) -> Any:
+    """Every 4-D ``kernel`` leaf of ``tree`` (a conv kernel in seed_tpu's
+    HWIO [kh, kw, in, out]) as torch's OIHW [out, in, kh, kw], stored
+    channels_last (O, kh, kw, in in memory), the layout the port's convs
+    take without a copy. Linear kernels (2-D) are left as they are."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 4:
+                v = v.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+            out[k] = convs_to_oihw(v)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [convs_to_oihw(v) for v in tree]
+    return tree
+
+
+def unclip_from_seed_tpu(tree: Any, device="cuda") -> Any:
+    """seed_tpu unCLIP tree (numpy leaves) -> the port's, on ``device``."""
+    return convs_to_oihw(from_seed_tpu(tree, device))

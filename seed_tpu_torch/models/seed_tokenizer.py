@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -171,3 +172,13 @@ def decode_embedding(params, indices: torch.Tensor,
     h = h + params["pos_embed_image"].to(h.dtype)
     h = blocks_apply(params["blocks_image"], h, _decode_block_cfg(cfg))
     return distill_head(params, h, cfg)
+
+
+def encode_to_embedding(params, images: torch.Tensor,
+                        cfg: SeedTokenizerConfig = SEED_TOKENIZER
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """images -> (ids [B, Q], unCLIP image embedding [B, image_embed_dim]):
+    the fused round trip of offline pre-tokenization and reconstruction
+    eval."""
+    ids = encode(params, images, cfg)
+    return ids, decode_embedding(params, ids, cfg)

@@ -1,0 +1,167 @@
+"""unCLIP de-tokenizer pipeline: SEED image embedding -> pixels (counterpart
+of seed_tpu/models/unclip/pipeline.py).
+
+StableUnCLIPImg2ImgPipeline.__call__ restricted to the SEED use (precomputed
+``image_embeds`` conditioning):
+
+1. noise_image_embeddings: normalize -> DDPM add_noise at noise_level ->
+   unnormalize -> concat the sinusoidal noise-level embedding (1024 -> 2048)
+2. classifier-free guidance over the image embedding: uncond = zeros (or a
+   negative embedding), cond and uncond batched in one UNet pass
+3. DDIM v-prediction, 20 steps, guidance 10, 96x96x4 latents
+4. VAE decode -> [0, 1] images, 768x768
+
+The scheduler's tables are made on the device once per call, and the loop
+indexes them there: the 20 steps enqueue their work without a host sync.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ... import resolve_device
+from .schedulers import DDIMScheduler, DDPMNoiser, timestep_embedding
+from .unet import SD21_UNCLIP_UNET, TINY_UNET, UNetConfig, init_unet, unet_apply
+from .vae import SD_VAE, TINY_VAE, VAEConfig, init_vae_decoder, vae_decode
+
+
+@dataclass(frozen=True)
+class UnCLIPConfig:
+    unet: UNetConfig = SD21_UNCLIP_UNET
+    vae: VAEConfig = SD_VAE
+    scheduler: DDIMScheduler = DDIMScheduler()
+    noiser: DDPMNoiser = DDPMNoiser()
+    image_embed_dim: int = 1024
+    latent_size: int = 96
+    text_ctx_dim: int = 1024
+    text_ctx_len: int = 77
+
+
+SD21_UNCLIP = UnCLIPConfig()
+TINY_UNCLIP = UnCLIPConfig(
+    unet=TINY_UNET, vae=TINY_VAE, image_embed_dim=5, latent_size=8,
+    text_ctx_dim=TINY_UNET.cross_attention_dim, text_ctx_len=4)
+
+
+@torch.no_grad()
+def init_unclip(gen: torch.Generator, cfg: UnCLIPConfig = SD21_UNCLIP,
+                dtype=torch.float32, device="cuda"):
+    """Seeded random de-tokenizer weights on ``device`` (the card by
+    default); ``gen`` is a torch.Generator on that device."""
+    device = resolve_device(device)
+    return {
+        "unet": init_unet(gen, cfg.unet, dtype, device),
+        "vae": init_vae_decoder(gen, cfg.vae, dtype, device),
+        # StableUnCLIPImageNormalizer (mean/std over the CLIP embedding)
+        "image_normalizer": {
+            "mean": torch.zeros((cfg.image_embed_dim,), dtype=dtype,
+                                device=device),
+            "std": torch.ones((cfg.image_embed_dim,), dtype=dtype,
+                              device=device)},
+        # cached empty-prompt text context ("" through the CLIP text tower);
+        # python3 -m seed_tpu_torch.convert unclip fills it from a checkpoint
+        "empty_prompt_embeds": torch.zeros(
+            (1, cfg.text_ctx_len, cfg.text_ctx_dim), dtype=dtype, device=device),
+    }
+
+
+def noise_image_embeddings(params, image_embeds: torch.Tensor,
+                           noise_level: int, noise: Optional[torch.Tensor],
+                           cfg: UnCLIPConfig) -> torch.Tensor:
+    """[B, D] -> [B, 2D]: noised embedding ++ noise-level embedding."""
+    norm = params["image_normalizer"]
+    mean, std = norm["mean"].float(), norm["std"].float()
+    x = (image_embeds.float() - mean) / std
+    if noise is None:
+        noise = torch.zeros_like(x)
+    ts = torch.full((x.shape[0],), noise_level, dtype=torch.int32,
+                    device=x.device)
+    x = cfg.noiser.add_noise(x, noise, ts)
+    x = x * std + mean
+    lvl = timestep_embedding(ts, image_embeds.shape[-1], flip_sin_to_cos=True,
+                             downscale_freq_shift=0.0)
+    return torch.cat([x, lvl], dim=1).to(image_embeds.dtype)
+
+
+def generate_latents(params, image_embeds: torch.Tensor, latents: torch.Tensor,
+                     cfg: UnCLIPConfig, num_inference_steps: int = 20,
+                     guidance_scale: float = 10.0,
+                     negative_image_embeds: Optional[torch.Tensor] = None,
+                     noise_level: int = 0,
+                     embed_noise: Optional[torch.Tensor] = None,
+                     prompt_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Denoise loop -> final latents [B, h, w, 4] (pre-VAE)."""
+    B = image_embeds.shape[0]
+    cond = noise_image_embeddings(params, image_embeds, noise_level,
+                                  embed_noise, cfg)
+    if negative_image_embeds is not None:
+        uncond = noise_image_embeddings(params, negative_image_embeds, 0,
+                                        None, cfg)
+    else:
+        uncond = torch.zeros_like(cond)
+    class_labels = torch.cat([uncond, cond], dim=0)     # CFG batch
+
+    if prompt_embeds is None:
+        prompt_embeds = params["empty_prompt_embeds"]
+    ctx = prompt_embeds.expand(2 * B, *prompt_embeds.shape[-2:]).to(latents.dtype)
+
+    ts, alpha_t, alpha_prev = cfg.scheduler.make_tables(num_inference_steps,
+                                                        latents.device)
+    x = latents * cfg.scheduler.init_noise_sigma
+    for i in range(num_inference_steps):
+        lat2 = torch.cat([x, x], dim=0)
+        t = ts[i].expand(2 * B)
+        pred = unet_apply(params["unet"], lat2, t, ctx, class_labels, cfg.unet)
+        pu, pc = pred.chunk(2, dim=0)
+        pred = pu + guidance_scale * (pc - pu)
+        x = cfg.scheduler.step(pred, x, alpha_t[i], alpha_prev[i]).to(x.dtype)
+    return x
+
+
+def decode_to_images(params, latents: torch.Tensor,
+                     cfg: UnCLIPConfig) -> torch.Tensor:
+    imgs = vae_decode(params["vae"], latents / cfg.vae.scaling_factor, cfg.vae)
+    return (imgs * 0.5 + 0.5).clamp(0.0, 1.0)   # [-1,1] -> [0,1]
+
+
+class UnCLIPDecoder:
+    """The serving-side de-tokenizer (the diffusion half of ImageTokenizer).
+
+    Holds the fixed latents the reference decodes from
+    (seed_llama_tokenizer.py:61-65). seed_tpu draws them from
+    ``jax.random.PRNGKey(seed)``, a stream torch cannot repeat; here they come
+    from ``torch.Generator(device).manual_seed(seed)``, and tests that hold
+    the two packages together set ``latents`` explicitly. ``offload=True``
+    keeps the weights in pinned host memory between calls
+    (serving/offload.py).
+    """
+
+    def __init__(self, params, cfg: UnCLIPConfig = SD21_UNCLIP,
+                 num_inference_steps: int = 20, guidance_scale: float = 10.0,
+                 dtype=torch.bfloat16, seed: int = 42, offload: bool = False,
+                 device="cuda"):
+        from ...serving.offload import wrap_params
+        self.device = resolve_device(device)
+        self._params = wrap_params(params, offload, self.device)
+        self.params = self._params.params
+        self.cfg = cfg
+        self.num_inference_steps = num_inference_steps
+        self.guidance_scale = guidance_scale
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.latents = torch.randn(
+            (1, cfg.latent_size, cfg.latent_size, 4), generator=gen,
+            device=self.device).to(dtype)
+
+    @torch.inference_mode()
+    def generate(self, image_embeds) -> np.ndarray:
+        """[B, 1024] unCLIP embeddings -> float32 images [B, H, W, 3] in
+        [0, 1], decoded from the same latents for every image."""
+        emb = torch.as_tensor(image_embeds, device=self.device)
+        lat = self.latents.expand(emb.shape[0], *self.latents.shape[1:])
+        with self._params as p:     # the host copy syncs before release
+            lat = generate_latents(p, emb, lat, self.cfg,
+                                   self.num_inference_steps, self.guidance_scale)
+            return decode_to_images(p, lat, self.cfg).float().cpu().numpy()

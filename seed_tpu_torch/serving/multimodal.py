@@ -8,10 +8,12 @@ the unCLIP image embedding through the SEED tokenizer's ``decode_embedding``.
 Fusion happens in id space; the string adapters give the reference's
 '<img><img_00042>...</img>' string space.
 
-The unCLIP diffusion de-tokenizer (embedding -> pixels) is not ported yet
-(ROADMAP.md): ``diffusion`` stays ``None`` and an image segment carries its
-embedding. ``offload=True`` keeps the tokenizer in pinned host memory between
-calls (serving/offload.py).
+With a pixel de-tokenizer attached (``diffusion=``, an
+``models.unclip.UnCLIPDecoder``) an image segment carries its pixels
+(``Segment.image``, float32 [1, H, W, 3] in [0, 1]); without one it carries
+the unCLIP embedding (``Segment.image_embedding``). ``offload=True`` keeps the
+tokenizer in pinned host memory between calls (serving/offload.py); the
+decoder has an ``offload`` of its own.
 """
 from __future__ import annotations
 

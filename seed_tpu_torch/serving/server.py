@@ -13,15 +13,17 @@ response {"text": "... <image> ...", "images": [base64 png],
 Semantics preserved: text splits at IMG_FLAG (one image per flag), mixed
 base64/cached-ids inputs are encoded in one batch, BOI/EOI pairing is
 validated with error accumulation instead of crashing (:186-203), and
-generated image spans are replaced by IMG_FLAG in the returned text. With
-no diffusion de-tokenizer attached, a generated image comes back as its ids
-in ``images_ids`` and an empty string in ``images``.
+generated image spans are replaced by IMG_FLAG in the returned text. A
+generated image comes back as its ids in ``images_ids`` and, with the unCLIP
+de-tokenizer attached (``--diffusion-ckpt``), as a base64 PNG in ``images``;
+without one, as an empty string there.
 
     python -m seed_tpu_torch.serving.server --model 8b --scheduler \
         --slot-cache fp8 --w8a8-encoder
 
 starts the service on the card with seeded random weights (or checkpoints
-given with --llm-ckpt / --tokenizer-ckpt).
+given with --llm-ckpt / --tokenizer-ckpt; --diffusion-ckpt takes an unCLIP
+checkpoint written by ``python3 -m seed_tpu_torch.convert unclip``).
 """
 from __future__ import annotations
 
@@ -289,7 +291,9 @@ def serve(service: GenerateService, host: str = "0.0.0.0", port: int = 7890):
 def build_service(args) -> GenerateService:
     """The service ``main`` serves: models from checkpoints or seeded random
     weights on ``args.device``, the LLM int8 under DEFAULT_TARGETS at 8b/14b,
-    behind a LlamaEngine or (``--scheduler``) a ScheduledEngine."""
+    behind a LlamaEngine or (``--scheduler``) a ScheduledEngine; with
+    ``--diffusion-ckpt`` the SD2.1 unCLIP de-tokenizer decodes generated
+    images to pixels (in host memory between calls under ``--offload``)."""
     from ..models import llama as M
     from ..models import seed_tokenizer as ST
     from ..ops.quantization import DEFAULT_TARGETS
@@ -328,8 +332,16 @@ def build_service(args) -> GenerateService:
             device=device)
     else:
         engine = LlamaEngine(llm, cfg, device=device)
+    diffusion = None
+    if args.diffusion_ckpt:
+        from ..models.unclip import SD21_UNCLIP, UnCLIPDecoder
+        diffusion = UnCLIPDecoder(
+            restore_checkpoint(args.diffusion_ckpt,
+                               device="cpu" if args.offload else device),
+            SD21_UNCLIP, offload=args.offload, device=device)
     iface = SeedLlamaInterface(engine, tok_params, tok_cfg, text_tok,
-                               offload=args.offload, device=device)
+                               diffusion=diffusion, offload=args.offload,
+                               device=device)
     return GenerateService(iface, keep_ratio=args.keep_ratio)
 
 
@@ -340,6 +352,9 @@ def main(argv=None) -> None:
     ap.add_argument("--model", choices=["8b", "14b", "tiny"], default="tiny")
     ap.add_argument("--llm-ckpt", default=None)
     ap.add_argument("--tokenizer-ckpt", default=None)
+    ap.add_argument("--diffusion-ckpt", default=None,
+                    help="unCLIP checkpoint (python3 -m seed_tpu_torch.convert "
+                         "unclip): generated images come back as PNGs")
     ap.add_argument("--text-tokenizer", default=None)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=7890)
@@ -349,8 +364,9 @@ def main(argv=None) -> None:
                          "resize (the get_transform keep_ratio branch; the "
                          "shipped demo config uses keep_ratio=False)")
     ap.add_argument("--offload", action="store_true",
-                    help="keep the tokenizer's params in pinned host memory "
-                         "and swap them onto the device per call")
+                    help="keep the tokenizer's and the de-tokenizer's params "
+                         "in pinned host memory and swap them onto the "
+                         "device per call")
     ap.add_argument("--scheduler", action="store_true",
                     help="serve the LLM through the continuous-batching "
                          "scheduler: concurrent requests share decode steps "

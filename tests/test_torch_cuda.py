@@ -1,5 +1,6 @@
 """The CUDA kernels of seed_tpu_torch against their plain versions, on the
-card. A CUDA kernel has no CPU mode, so every test here is marked ``cuda``
+card, and the unCLIP de-tokenizer at SD2.1 width (bf16 against fp32). A
+CUDA kernel has no CPU mode, so every test here is marked ``cuda``
 and skips on a machine without a GPU. These tests need no JAX; where JAX is
 not installed, run them without the suite's conftest (which imports it):
 
@@ -9,6 +10,8 @@ import pytest
 import torch
 
 from seed_tpu_torch.models import layers as L
+from seed_tpu_torch.models import unclip as TU
+from seed_tpu_torch.models.unclip import unet as TUN
 from seed_tpu_torch.ops import flash_attention as TF
 from seed_tpu_torch.ops import int8_matmul as TI
 from seed_tpu_torch.ops.attention import mha
@@ -16,6 +19,8 @@ from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
 from seed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_plain,
                                             w8a8_matmul, w8a8_matmul_plain)
 from seed_tpu_torch.ops.quantization import quantize_acts, quantize_weight
+from seed_tpu_torch.serving.offload import OffloadedParams
+from seed_tpu_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -400,3 +405,66 @@ def test_bf16_kernels_launch_at_the_edge_shapes(gen, kernel, S, D):
     assert fn.launches == before + 1
     for out in (outs if isinstance(outs, tuple) else (outs,)):
         assert out.shape == q.shape and out.isfinite().all()
+
+
+# ----------------------- the unCLIP de-tokenizer (no kernel) -----------------
+
+@pytest.fixture
+def no_tf32():
+    """fp32 convolutions and matmuls in full fp32 for the comparison."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_unclip_unet_pass_bf16_against_fp32(gen, no_tf32):
+    """One SD2.1-width UNet pass at the decode's shape (CFG batch 2 at
+    96x96x4, a [2, 77, 1024] context): bf16 within 5e-2 of the fp32 output's
+    largest magnitude (chip_smoke.py's UNET_BF16_TOL); no kernel of the six
+    is launched."""
+    cfg = TU.SD21_UNCLIP
+    p32 = TU.init_unet(gen, cfg.unet)
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+    lat = torch.randn((2, 96, 96, 4), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, 1024), generator=gen, device="cuda")
+    labels = torch.randn((2, 2048), generator=gen, device="cuda")
+    t = torch.tensor([951, 951], device="cuda")
+    before = (short_mha.launches, int8_matmul.launches, TF.flash_fwd.launches)
+    with torch.inference_mode():
+        ref = TU.unet_apply(p32, lat, t, ctx, labels, cfg.unet)
+        got = TU.unet_apply(p16, lat.bfloat16(), t, ctx.bfloat16(),
+                            labels.bfloat16(), cfg.unet)
+    assert (short_mha.launches, int8_matmul.launches,
+            TF.flash_fwd.launches) == before
+    assert got.shape == ref.shape == (2, 96, 96, 4) and got.isfinite().all()
+    rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 5e-2, rel
+
+
+def test_unclip_conv_weights_stay_channels_last_through_offload(gen):
+    """Weights held in pinned host memory come back to the card in
+    channels_last, and a conv of an NHWC activation returns NHWC memory: no
+    copy of a weight or an activation around a conv."""
+    p = {"kernel": TUN.init_conv(gen, 3, 3, 64, 32)["kernel"],
+         "bias": torch.zeros(32, device="cuda")}
+    off = OffloadedParams(p)
+    assert off.params["kernel"].is_pinned()
+    with off as live:
+        assert live["kernel"].is_contiguous(memory_format=torch.channels_last)
+        x = torch.randn((2, 16, 16, 64), generator=gen, device="cuda")
+        y = TUN.conv2d(live, x)
+    assert y.shape == (2, 16, 16, 32) and y.is_contiguous()
+
+
+def test_unclip_decoder_generates_pixels(gen):
+    """UnCLIPDecoder on the card at a small config, offloaded, in bf16:
+    [0, 1] pixels, the same on a second call."""
+    cfg = TU.TINY_UNCLIP
+    dec = TU.UnCLIPDecoder(TU.init_unclip(gen, cfg, torch.bfloat16), cfg,
+                           num_inference_steps=4, offload=True)
+    emb = torch.randn((2, cfg.image_embed_dim), generator=gen, device="cuda")
+    img = dec.generate(emb)
+    side = cfg.latent_size * cfg.vae.upscale
+    assert img.shape == (2, side, side, 3) and img.min() >= 0 and img.max() <= 1
+    assert (img == dec.generate(emb)).all()
