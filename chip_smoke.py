@@ -41,11 +41,23 @@ Phases, each printing lines of its own:
              appended -> SeedLlamaInterface.split_output -> 768x768 pixels
              through the offloaded bf16 decoder (20 DDIM steps, guidance 10)
              -> PNG; the same decode in fp32 against bf16.
+9. train_llm — python3 -m seed_tpu_torch.train.train_llm on pkl tar shards
+             written under build/: SEED-LLaMA-8B + LoRA through the flash
+             kernels (--batch-size 8 --grad-accum 2 --max-length 1024), 3
+             steps with saves at 2 and 3, then a fresh main(--resume) for
+             step 4 and one caption eval round on the merged weights.
+10. train_tokenizer — python3 -m seed_tpu_torch.train.train_tokenizer on a
+             JPEG + caption tar: stage 1 at full width (frozen fp32
+             EVA-ViT-g through the fp32 short_mha kernel, Q-Former with its
+             text pathway, batch 16, 3 steps, saved), then stage 2 from that
+             checkpoint with the random CLIP-ViT-H targets computed inline
+             (2 steps); short_mha's fp32 launch at that shape timed.
 
-Phases 4-5 (serving), phase 6 (the throughput server) and phase 7 (training)
-are the main paths: the launch counters of a path's kernels are set to 0 just
-before it and read just after. Phase 8 launches none of the six kernels (its
-lines show the counts) and is counted on no path.
+Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
+phase 9 (train_llm) and phase 10 (train_tokenizer) are the main paths: the
+launch counters of a path's kernels are set to 0 just before it and read just
+after. Phase 8 launches none of the six kernels (its lines show the counts)
+and is counted on no path.
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
 one before that the card.
@@ -57,10 +69,12 @@ import dataclasses
 import io
 import json
 import math
+import pickle
 import re
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -1520,9 +1534,9 @@ def llm_trainer(base, cfg, lora):
                    TrainerConfig(grad_accum=TRAIN_ACCUM))
 
 
-def phase_train(name: str) -> dict:
+def phase_train(name: str):
     """LoRA fine-tuning of SEED-LLaMA-8B through Trainer; returns the flash
-    kernels' launch counts over the counted steps."""
+    kernels' launch counts over the counted steps and the median step ms."""
     from seed_tpu_torch.models import llama as M
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.train import init_lora
@@ -1634,7 +1648,318 @@ def phase_train(name: str) -> dict:
          resumed_bit_equal=loss_resumed == loss_continued,
          launches_per_step=dict(zip(("flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv"), per_step)), card=name)
+    return {fn.__name__: fn.launches for fn in counters}, median
+
+
+# --------------------------------------------------------------- phase 9
+
+# python3 -m seed_tpu_torch.train.train_llm at full width:
+# SEED-LLaMA-8B + LoRA r=16, flash kernels, 8 sequences of 1024 tokens per
+# step in 2 micro-batches of 4
+LLM_ARGS = ["--model", "8b", "--lora", "--flash", "--batch-size", "8",
+            "--grad-accum", "2", "--max-length", "1024", "--save-steps", "2",
+            "--log-steps", "1", "--warmup", "1", "--seed", str(SEED + 6)]
+WORDS = ("a photo of the red cat sitting on an old wooden table next to two "
+         "small dogs in bright morning light while people walk by").split()
+
+
+def _add(tf: tarfile.TarFile, name: str, data: bytes) -> None:
+    info = tarfile.TarInfo(name)
+    info.size = len(data)
+    tf.addfile(info, io.BytesIO(data))
+
+
+def write_llm_shards(root: Path) -> str:
+    """Two pretokenized pkl shards of 32 records each (the extractor's
+    format: 32 image ids, a caption, a question and answer). Captions of
+    960-1100 bytes: with the byte tokenizer a caption example fills the
+    1024-token sequence or nearly."""
+    rs = np.random.RandomState(SEED + 7)
+    for s in range(2):
+        with tarfile.open(root / f"llm_{s:03d}.tar", "w") as tf:
+            for i in range(32):
+                n = int(rs.randint(960, 1100))
+                text = " ".join(rs.choice(WORDS, n // 3))[:n]
+                rec = {"image_ids": rs.randint(0, 8192, 32).tolist(),
+                       "text": text, "question": f"what is in photo {i}?",
+                       "answer": " ".join(rs.choice(WORDS, 8))}
+                _add(tf, f"s{s}_k{i}.pkl", pickle.dumps(rec))
+    return str(root / "llm_*.tar")
+
+
+def write_llm_eval(root: Path):
+    """Two pretokenized caption prompts (BOS, an image block, a prompt) and
+    their reference captions."""
+    from seed_tpu_torch.data import image_token_ids
+    from seed_tpu_torch.serving.multimodal import ByteTextTokenizer
+    tok = ByteTextTokenizer()
+    rs = np.random.RandomState(SEED + 8)
+    with open(root / "eval.jsonl", "w") as f:
+        for i in range(2):
+            ids = ([tok.bos_token_id] + image_token_ids(rs.randint(0, 8192, 32))
+                   + tok.encode("Describe the image."))
+            f.write(json.dumps({"input_ids": ids, "image_id": i}) + "\n")
+    (root / "ann.json").write_text(json.dumps(
+        {str(i): [" ".join(rs.choice(WORDS, 9))] for i in range(2)}))
+    return ["--eval-data", str(root / "eval.jsonl"), "--eval-annotations",
+            str(root / "ann.json"), "--eval-batches", "1",
+            "--eval-batch-size", "2", "--eval-max-new-tokens", "16"]
+
+
+def step_seconds(record: dict) -> list:
+    """Host seconds of each logged step of an entry point's run record
+    (logged every step; each line reads the loss, so the card has finished
+    the step): from the round's start or from the previous step's line."""
+    steps = [r["time"] for r in record["log"] if "loss" in r]
+    marks = sorted(record["round_starts"] + steps)
+    return [t - max(m for m in marks if m < t) for t in steps]
+
+
+def _host_share(record: dict, seconds: list) -> dict:
+    """The data pipeline's share of the training loop's wall: the seconds
+    the loop waited for each batch against each step's wall. The first
+    batch waits for the shuffle buffer to fill; the steady share leaves it
+    out."""
+    waits = record["data_waits_s"][:len(seconds)]
+    return {"first_batch_wait_s": waits[0],
+            "host_share": sum(waits) / sum(seconds),
+            "host_share_steady": (sum(waits[1:]) / sum(seconds[1:])
+                                  if len(seconds) > 1 else None)}
+
+
+def phase_train_llm(name: str, synthetic_ms: float) -> dict:
+    """``train_llm`` on tar shards: 3 steps with a save at 2 and 3, then a
+    fresh ``main(--resume)`` that restores step 3, trains step 4 and runs one
+    caption eval round on the merged weights. Returns the flash kernels'
+    launches over both runs."""
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.train import train_llm
+    from seed_tpu_torch.utils.tree import leaves_with_path
+    layers = train_llm.MODELS["8b"].layers
+    counters = (TF.flash_fwd, TF.flash_bwd_dq, TF.flash_bwd_dkv)
+    per_step = [4 * layers, 2 * layers, 2 * layers]   # grad_accum 2, remat
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        common = ["--data", write_llm_shards(tmp), *LLM_ARGS,
+                  "--output", str(tmp / "out")]
+        args = train_llm.parse_args(common + ["--steps", "3"])
+        t0 = time.perf_counter()
+        setup = train_llm.build(args)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        before = _fingerprint(setup.base)
+        for fn in counters:             # the main path: counted from here
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rec = train_llm.run(args, setup)
+        got = [fn.launches for fn in counters]
+        if got != [3 * n for n in per_step]:
+            raise AssertionError(f"train_llm: launches {got}, expected "
+                                 f"{per_step} per step for 3 steps")
+        if _fingerprint(setup.base) != before:
+            raise AssertionError("train_llm: the frozen base changed")
+        losses = [r["loss"] for r in rec["log"] if "loss" in r]
+        if len(losses) != 3 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_llm: losses {losses}")
+        for path, t in leaves_with_path(setup.trainer.state.params):
+            if not t.isfinite().all() or (path.endswith("/b") and not t.any()):
+                raise AssertionError(f"train_llm: adapter {path} is zero or "
+                                     "not finite")
+        seconds = step_seconds(rec)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tokens = args.batch_size * args.max_length
+        median = statistics.median(seconds[1:]) * 1e3
+        emit("train_llm", what="SEED_LLAMA_8B + LoRA from tar shards "
+             "(python3 -m seed_tpu_torch.train.train_llm " + " ".join(LLM_ARGS)
+             + " --steps 3)", init_s=init_s, losses=losses,
+             step_ms_runs=[x * 1e3 for x in seconds], step_ms_median=median,
+             tokens_per_step=tokens, tokens_per_s=tokens / median * 1e3,
+             synthetic_step_ms_median=synthetic_ms,
+             max_memory_allocated_gib=peak, launches=got,
+             **_host_share(rec, seconds), card=name)
+        del setup
+        torch.cuda.empty_cache()
+
+        rec = train_llm.main(common + ["--steps", "4", "--resume",
+                                       *write_llm_eval(tmp)])
+        got = [fn.launches for fn in counters]
+        if rec["resumed_from"] != 3 or rec["step"] != 4:
+            raise AssertionError(f"train_llm --resume: from "
+                                 f"{rec['resumed_from']} to {rec['step']}")
+        if got != [4 * n for n in per_step]:
+            raise AssertionError(f"train_llm --resume: launches {got}, "
+                                 f"expected {per_step} per step for 4 steps")
+        (ev,) = rec["evals"]
+        loss = [r["loss"] for r in rec["log"] if "loss" in r]
+        if not (math.isfinite(loss[0]) and ev["eval_num_evaluated"] == 2
+                and all(math.isfinite(v) for v in ev.values())):
+            raise AssertionError(f"train_llm --resume: loss {loss}, eval {ev}")
+        emit("train_llm", what="a fresh main(--resume): step 3 restored, "
+             "step 4 trained, one caption eval round on the merged weights",
+             resumed_from=rec["resumed_from"], loss=loss[0],
+             step_ms=step_seconds(rec)[0] * 1e3, eval=ev,
+             launches_per_step=dict(zip((f.__name__ for f in counters),
+                                        per_step)), card=name)
     return {fn.__name__: fn.launches for fn in counters}
+
+
+# -------------------------------------------------------------- phase 10
+
+# python3 -m seed_tpu_torch.train.train_tokenizer at full width: EVA-ViT-g
+# (39 blocks, fp32, frozen) and the Q-Former with its text pathway; stage 2
+# with the random CLIP-ViT-H target tower
+TOK_ARGS = ["--arch", "full", "--image-size", "224", "--batch-size", "16",
+            "--warmup", "1", "--seed", str(SEED + 9)]
+
+
+def write_image_tar(root: Path, n: int = 48) -> str:
+    """One webdataset tar of ``n`` JPEG + caption pairs: smooth colour
+    fields with noise, 240-400 pixels a side."""
+    from PIL import Image
+    rs = np.random.RandomState(SEED + 10)
+    with tarfile.open(root / "img_000.tar", "w") as tf:
+        for i in range(n):
+            h, w = (int(x) for x in rs.randint(240, 400, 2))
+            yy, xx = np.mgrid[0:h, 0:w]
+            base = np.stack([np.sin(xx / rs.uniform(8, 40) + c) * 90 + 128
+                             + np.cos(yy / rs.uniform(8, 40)) * 30
+                             for c in range(3)], -1)
+            img = np.clip(base + rs.randn(h, w, 3) * 12, 0, 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+            _add(tf, f"k{i}.jpg", buf.getvalue())
+            _add(tf, f"k{i}.txt",
+                 " ".join(rs.choice(WORDS, int(rs.randint(5, 16)))).encode())
+    return str(root / "img_*.tar")
+
+
+def _leaf_bits(tree, keep) -> dict:
+    """Exact checksum of each leaf's bits whose path ``keep`` accepts."""
+    from seed_tpu_torch.utils.tree import leaves_with_path
+    return {p: _fingerprint(t) for p, t in leaves_with_path(tree) if keep(p)}
+
+
+def _tokenizer_stage(name: str, stage: int, argv: list, metric_keys):
+    """Build, train and check one stage; returns (record, trainable paths
+    of the saved checkpoint, frozen paths)."""
+    from seed_tpu_torch.ops.flash_attention import short_mha
+    from seed_tpu_torch.train import train_tokenizer as TT
+    from seed_tpu_torch.utils.checkpoint import filter_tree, restore_checkpoint
+    from seed_tpu_torch.utils.tree import leaves_with_path
+    args = TT.parse_args(argv)
+    t0 = time.perf_counter()
+    setup = TT.build(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    setup.trainer.cfg.log_every = 1
+    trains = lambda p: re.search(setup.trainable, p) is not None
+    frozen = _leaf_bits(setup.trainer.state.params, lambda p: not trains(p))
+    n_params = {"trainable_params": 0, "frozen_params": 0}
+    for p, t in leaves_with_path(setup.trainer.state.params):
+        n_params["trainable_params" if trains(p) else "frozen_params"] += \
+            t.numel()
+    depth = setup.tok_cfg.vit.depth
+    launches0 = short_mha.launches
+    torch.cuda.reset_peak_memory_stats()
+    rec = TT.run(args, setup)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = short_mha.launches - launches0
+    if got != depth * args.steps:
+        raise AssertionError(f"train_tokenizer stage {stage}: short_mha "
+                             f"launched {got} times, not {depth} per step")
+    logged = [r for r in rec["log"] if "loss" in r]
+    for r in logged:
+        if not all(math.isfinite(r[k]) for k in ("loss", *metric_keys)):
+            raise AssertionError(f"train_tokenizer stage {stage}: {r}")
+        if stage == 2 and not 0 < r["codebook_usage"] <= 1:
+            raise AssertionError(f"codebook_usage {r['codebook_usage']}")
+    if _leaf_bits(setup.trainer.state.params,
+                  lambda p: not trains(p)) != frozen:
+        raise AssertionError(f"train_tokenizer stage {stage}: a frozen leaf "
+                             "changed")
+    saved = restore_checkpoint(str(Path(args.output) / f"step_{args.steps}"),
+                               device=setup.trainer.device)
+    want = {p for p, _ in leaves_with_path(
+        filter_tree(setup.trainer.state.params, setup.trainable))}
+    if {p for p, _ in leaves_with_path(saved)} != want:
+        raise AssertionError(f"train_tokenizer stage {stage}: the checkpoint "
+                             "holds other paths than the trainable pattern")
+    seconds = step_seconds(rec)
+    median = statistics.median(seconds[1:])
+    side = {}
+    if setup.clip is not None:
+        # the CLIP targets' device time per batch: work the data thread puts
+        # on the card beside each step, on its own stream
+        imgs = torch.randn((args.batch_size, args.image_size, args.image_size,
+                            3), device="cuda")
+        side["clip_targets_ms_per_batch"] = time_ms(lambda: setup.clip(imgs),
+                                                    iters=5)
+    emit("train_tokenizer", stage=stage, what="python3 -m "
+         "seed_tpu_torch.train.train_tokenizer " + " ".join(argv[:-2]),
+         init_s=init_s, step_ms_runs=[x * 1e3 for x in seconds],
+         step_ms_median=median * 1e3,
+         img_per_s=args.batch_size / median,
+         metrics={k: [r[k] for r in logged] for k in ("loss", *metric_keys)},
+         short_mha_launches=got, short_mha_launches_per_step=depth,
+         frozen_leaves=len(frozen), checkpoint_leaves=len(want), **n_params,
+         max_memory_allocated_gib=peak, **_host_share(rec, seconds), **side,
+         card=name)
+    return got
+
+
+def phase_train_tokenizer(name: str, flush: torch.Tensor) -> dict:
+    """``train_tokenizer`` stage 1 (3 steps, saved) then stage 2 from that
+    checkpoint (2 steps); then short_mha's fp32 launch at stage 1's shape
+    against its plain version and SDPA. Returns (launches over both
+    stages, the fp32 record)."""
+    import torch.nn.functional as F
+    from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        common = ["--data", write_image_tar(tmp), *TOK_ARGS]
+        launches += _tokenizer_stage(
+            name, 1, common + ["--stage", "1", "--steps", "3",
+                               "--save-steps", "3",
+                               "--output", str(tmp / "s1")],
+            ("itc", "itm", "lm"))
+        torch.cuda.empty_cache()
+        launches += _tokenizer_stage(
+            name, 2, common + ["--stage", "2", "--steps", "2",
+                               "--save-steps", "2", "--init-ckpt",
+                               str(tmp / "s1" / "step_3"),
+                               "--output", str(tmp / "s2")],
+            ("vq", "recon", "distill", "codebook_usage"))
+        torch.cuda.empty_cache()
+
+    # row 1's fp32 instance at the stage-1 step's shape: the fast epilogue
+    # (D = 88: the ones column), 2e-5 against its plain version
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    B, S, H, D = 16, 257, 16, 88
+    q, k, v = _qkv_views(gen, B, S, H, D, torch.float32)
+    before = short_mha.launches
+    got = short_mha(q, k, v, D ** -0.5, False)
+    err = (got - short_mha_plain(q, k, v, D ** -0.5, False)).abs().max().item()
+    if not err <= 2e-5:
+        raise AssertionError(f"short_mha fp32 stage-1 shape: {err} > 2e-5")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bms, by = bound_ms(4 * B * S * H * D * 4, 4 * B * H * S * S * D, FP32_FLOPS)
+    fp32 = dict(shape=dict(B=B, S=S, H=H, D=D, dtype="float32", exact=False),
+                ms=time_ms(lambda: short_mha(q, k, v, D ** -0.5, False),
+                           flush=flush),
+                plain_ms=time_ms(lambda: short_mha_plain(q, k, v, D ** -0.5,
+                                                         False), flush=flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt), flush=flush),
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+    short_mha.launches = before          # comparison launches are not counted
+    emit("kernels", kernel="short_mha", what="the stage-1 step's fp32 "
+         "launch", **fp32, card=name)
+    return launches, fp32
 
 
 def redesigned_smem_bytes() -> dict:
@@ -1727,7 +2052,22 @@ def main() -> None:
     del tok_params, codes, raw, llama_int8
     torch.cuda.empty_cache()
     # the training path: phase_train zeroes its kernels' counters itself
-    launches.update(phase_train(name))
+    train_launches, synthetic_ms = phase_train(name)
+    launches.update(train_launches)
+    torch.cuda.empty_cache()
+    # the two training entry points, each a path of its own (phases 9, 10)
+    for kernel, n in phase_train_llm(name, synthetic_ms).items():
+        launches[kernel] += n
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    short_mha.launches = 0
+    tok_launches, fp32_stage1 = phase_train_tokenizer(name, flush)
+    emit("launches", path="train_tokenizer", short_mha=tok_launches,
+         card=name)
+    if tok_launches == 0:
+        raise AssertionError("short_mha was never launched on the "
+                             "train_tokenizer path")
+    launches["short_mha"] += tok_launches
+    del flush
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} was never launched on its main path")
@@ -1763,6 +2103,8 @@ def main() -> None:
         per_dp = usage.get(k, {})
         if k == "int8_matmul":
             entry["gemm_ms"] = record[k]["gemm_ms"]
+        if k == "short_mha":      # the tokenizer training's fp32 instance
+            entry["fp32_train_tokenizer"] = fp32_stage1
         entry.update(
             ms_host_included=record[k].get("ms_host_included"),
             registers=per_dp.get(main_dp[k], {}).get("registers"),

@@ -2,7 +2,7 @@
 
     python3 profile_port.py
 
-Seeded random weights at full width, as in chip_smoke.py. Seven regions:
+Seeded random weights at full width, as in chip_smoke.py. Nine regions:
 one SEED-tokenizer encode (exact config, B=8), the same encode through the
 W8A8 encoder (quantize_for_serving + serving_fast_config, as chip_smoke.py's
 server phase runs it), the de-tokenizer's unit of work (one SD2.1 UNet pass
@@ -12,9 +12,11 @@ prefill (B=4 x 64 tokens, M=256), 8 decode steps (B=4), 8 decode chunks of
 the continuous-batching scheduler (16 fp8 slots, max_len 1024, 8 steps per
 chunk), and one optimizer step of SEED-LLaMA-8B + LoRA training (bf16,
 grad_accum 2 x micro-batch 4 x 1024 tokens, per-layer recompute, flash
-kernels). For each region
-it prints one JSON line with the host wall time (median of 5 runs, no
-profiler), the device busy time (sum of kernel times under torch.profiler),
+kernels), and one step of each training entry point fed from tar shards
+(train_llm at those shapes; train_tokenizer stage 1 at full width, batch
+16). For each region it prints one JSON line with the host wall time
+(median of 5 runs, 3 for the heavier regions, no profiler), the device
+busy time (sum of kernel times under torch.profiler),
 the device's idle share, and the kernels with the most device time.
 """
 from __future__ import annotations
@@ -167,6 +169,52 @@ def main() -> None:
     batch = next(chip_smoke._train_batches(1, lcfg.vocab_size, chip_smoke.SEED))
     region("train step 8B LoRA, 2 x 4 x 1024 tokens",
            lambda: trainer.train(iter([batch]), 1), card, reps=3, top_n=16)
+    del base, trainer
+    torch.cuda.empty_cache()
+    entry_points(card)
+
+
+def entry_points(card: str) -> None:
+    """One step of each training entry point, fed by its own data thread
+    from tar shards (chip_smoke.py phases 9 and 10 at the same flags): the
+    wall holds the step and whatever wait for the next batch remains."""
+    import tempfile
+    from pathlib import Path
+
+    from seed_tpu_torch.data import Prefetcher, batched, shuffle_buffer
+    from seed_tpu_torch.serving.multimodal import ByteTextTokenizer
+    from seed_tpu_torch.train import train_llm
+    from seed_tpu_torch.train import train_tokenizer as TT
+    from seed_tpu_torch.train.entry import Feed
+
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        args = train_llm.parse_args(
+            ["--data", chip_smoke.write_llm_shards(tmp), *chip_smoke.LLM_ARGS,
+             "--steps", "100", "--output", str(tmp / "llm")])
+        setup = train_llm.build(args)
+        data = Prefetcher(train_llm.batch_stream(args, setup.tok), depth=2)
+        feed = Feed(data, setup.trainer.device)
+        region("train_llm step from tar shards, 8B LoRA, 2 x 4 x 1024 tokens",
+               lambda: setup.trainer.train(feed, 1), card, reps=3, top_n=16)
+        data.close()
+        del setup, data, feed
+        torch.cuda.empty_cache()
+
+        args = TT.parse_args(["--data", chip_smoke.write_image_tar(tmp),
+                              *chip_smoke.TOK_ARGS, "--stage", "1",
+                              "--steps", "100", "--output", str(tmp / "tok")])
+        setup = TT.build(args)
+        collate = TT.make_collate(args, setup, ByteTextTokenizer())
+        data = Prefetcher(batched(shuffle_buffer(TT.example_stream(args), 2000,
+                                                 args.seed),
+                                  args.batch_size, collate), depth=2)
+        feed = Feed(data, setup.trainer.device)
+        region("train_tokenizer stage 1 step, full width, batch 16 at 224",
+               lambda: setup.trainer.train(feed, 1), card, reps=3, top_n=16)
+        data.close()
 
 
 if __name__ == "__main__":

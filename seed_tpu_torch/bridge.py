@@ -44,33 +44,43 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _depth(t):
+    """Leading size of the first leaf that is not None (None if none is)."""
+    if isinstance(t, dict):
+        for v in t.values():
+            d = _depth(v)
+            if d is not None:
+                return d
+        return None
+    return None if t is None else np.asarray(t).shape[0]
+
+
 def _unstack(tree: dict) -> list:
     """{name: [L, ...]} (nested) -> [{name: [...]} for each of the L blocks]."""
-    def depth(t):
-        return depth(next(iter(t.values()))) if isinstance(t, dict) \
-            else np.asarray(t).shape[0]
-
     def take(t, i):
         if isinstance(t, dict):
             return {k: take(v, i) for k, v in t.items()}
-        return np.asarray(t)[i]
+        return None if t is None else np.asarray(t)[i]
 
-    return [take(tree, i) for i in range(depth(tree))]
+    return [take(tree, i) for i in range(_depth(tree))]
 
 
 def from_seed_tpu(tree: Any, device="cuda") -> Any:
     """seed_tpu param tree (numpy leaves) -> seed_tpu_torch param tree on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default). None leaves (seed_tpu's
+    ``filter_tree`` of a checkpoint) stay None; a stacked tree whose leaves
+    are all None becomes None."""
     device = resolve_device(device)
 
     def walk(t, key=None):
         if isinstance(t, dict):
             if key in STACKED_KEYS:
-                return [walk(b) for b in _unstack(t)]
+                return ([walk(b) for b in _unstack(t)]
+                        if _depth(t) is not None else None)
             return {k: walk(v, k) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             return [walk(v) for v in t]
-        return _tensor(t, device)
+        return None if t is None else _tensor(t, device)
 
     return walk(tree)
 

@@ -77,6 +77,10 @@ SEED_LLAMA_14B = LlamaConfig(dim=5120, layers=40, heads=40, kv_heads=40,
                              ffn_dim=13824, rms_eps=1e-5)
 TINY_LLAMA = LlamaConfig(vocab_size=270, dim=64, layers=2, heads=4,
                          kv_heads=2, ffn_dim=128, max_seq_len=128)
+# ~0.4B: the full SEED vocabulary and the 8B layer anatomy at reduced width
+# and depth (train_llm --model small)
+SMALL_LLAMA = LlamaConfig(vocab_size=40194, dim=1024, layers=8, heads=8,
+                          kv_heads=8, ffn_dim=2816, max_seq_len=1024)
 
 FP8 = torch.float8_e4m3fn
 FP8_MAX = 448.0     # e4m3fn has no infinity; its largest finite value

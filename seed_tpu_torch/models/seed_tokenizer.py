@@ -34,6 +34,7 @@ class SeedTokenizerConfig:
     decode_depth: int = 4          # qformer_quantizer.py:177 decode_depth=4
     decode_heads: int = 12
     image_embed_dim: int = 1024    # unCLIP CLIP-ViT-H image embedding dim
+    with_recon_blocks: bool = False  # stage-2 training's recon_s path
     # distill head variant (qformer_quantizer.py:172 use_qformer_image):
     # False = image_down MLP (released-checkpoint inference path);
     # True = 1-token Reverse Q-Former (the stage-2 training default)
@@ -47,7 +48,7 @@ class SeedTokenizerConfig:
     def reverse_qformer(self) -> QFormerConfig:
         """1 reverse token cross-attending to the 32 decoded features."""
         return dataclasses.replace(self.qformer, query_len=1,
-                                   encoder_width=self.hidden)
+                                   encoder_width=self.hidden, with_text=False)
 
 
 SEED_TOKENIZER = SeedTokenizerConfig()
@@ -100,6 +101,13 @@ def init_seed_tokenizer(gen: torch.Generator,
                                 "fc3": lin(128, 32, bias=False)}
         params["distill_image_proj"] = lin(cfg.qformer.query_len * 32,
                                            cfg.image_embed_dim)
+    if cfg.with_recon_blocks:
+        # stage 2's recon_s path: 4 blocks that rebuild the frozen Q-Former
+        # features (blip2_qformer_codebook_all_image.py:236-243)
+        params["pos_embed"] = torch.zeros((1, cfg.qformer.query_len, h),
+                                          dtype=dtype, device=device)
+        params["blocks"] = [init_block(gen, h, h * 4, "full", dtype, device)
+                            for _ in range(cfg.decode_depth)]
     return params
 
 

@@ -33,6 +33,8 @@ class ViTConfig:
     qkv_bias: str = "qv"        # "qv" (EVA: q+v bias, k zero) | "full" | "none"
     act: str = "gelu"           # "gelu" (erf) | "quick_gelu" | "gelu_tanh"
     ln_eps: float = 1e-6
+    ln_pre: bool = False        # CLIP's LayerNorm before the blocks
+    patch_bias: bool = True
     channels: int = 3
     use_flash: bool = False     # block attention through flash_attention
     flash_exact: bool = False   # ... with the kernel's op-faithful epilogue
@@ -52,6 +54,14 @@ class ViTConfig:
 
 
 EVA_VIT_G = ViTConfig()  # eva_vit.py:461-474: mlp = int(1408 * 4.3637) = 6144
+CLIP_VIT_L = ViTConfig(dim=1024, depth=23, heads=16, mlp_dim=4096,
+                       qkv_bias="full", act="quick_gelu", ln_eps=1e-5,
+                       ln_pre=True, patch_bias=False)
+# CLIP-ViT-H/14: the stage-2 distillation target tower
+# (CLIPVisionModelWithProjection); plain mha attention, as in seed_tpu
+CLIP_VIT_H = ViTConfig(dim=1280, depth=32, heads=16, mlp_dim=5120,
+                       qkv_bias="full", act="gelu", ln_eps=1e-5,
+                       ln_pre=True, patch_bias=False)
 TINY_VIT = ViTConfig(image_size=28, patch_size=14, dim=32, depth=2, heads=2,
                      mlp_dim=64)
 
@@ -86,7 +96,8 @@ def init_block(gen, dim: int, mlp_dim: int, qkv_bias: str,
 def init_vit(gen, cfg: ViTConfig, dtype=torch.float32, device="cuda"):
     patch_in = cfg.patch_size * cfg.patch_size * cfg.channels
     params = {
-        "patch_embed": L.init_linear(gen, patch_in, cfg.dim, dtype=dtype,
+        "patch_embed": L.init_linear(gen, patch_in, cfg.dim,
+                                     bias=cfg.patch_bias, dtype=dtype,
                                      device=device),
         "cls_token": L.normal(gen, (1, 1, cfg.dim), 0.02, dtype, device),
         "pos_embed": L.normal(gen, (1, cfg.num_patches + 1, cfg.dim), 0.02,
@@ -94,6 +105,8 @@ def init_vit(gen, cfg: ViTConfig, dtype=torch.float32, device="cuda"):
         "blocks": [init_block(gen, cfg.dim, cfg.mlp_dim, cfg.qkv_bias, dtype,
                               device) for _ in range(cfg.depth)],
     }
+    if cfg.ln_pre:
+        params["ln_pre"] = L.init_layer_norm(cfg.dim, dtype, device)
     return params
 
 
@@ -149,7 +162,7 @@ def blocks_apply(blocks: List[dict], x: torch.Tensor,
 
 def vit_apply(params, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """images [B, H, W, C] (already resized + normalized) -> [B, N+1, dim].
-    Patch embed, prepend cls, add pos embed, blocks. No
+    Patch embed, prepend cls, add pos embed, (CLIP: ln_pre,) blocks. No
     final norm: the caller applies ln_vision."""
     patches = patchify(images, cfg.patch_size)
     x = L.linear(params["patch_embed"], patches)
@@ -157,4 +170,23 @@ def vit_apply(params, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.dim)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)
+    if cfg.ln_pre:
+        x = L.layer_norm(params["ln_pre"], x, cfg.ln_eps)
     return blocks_apply(params["blocks"], x, cfg)
+
+
+def init_clip_vision_projection(gen, cfg: ViTConfig, proj_dim: int = 1024,
+                                dtype=torch.float32, device="cuda"):
+    """ln_post + the visual projection (CLIPVisionModelWithProjection): the
+    stage-2 distillation target's image_embeds [B, proj_dim]."""
+    return {"ln_post": L.init_layer_norm(cfg.dim, dtype, device),
+            "proj": L.init_linear(gen, cfg.dim, proj_dim, bias=False,
+                                  dtype=dtype, device=device)}
+
+
+def clip_image_embed(vit_params, head_params, images: torch.Tensor,
+                     cfg: ViTConfig) -> torch.Tensor:
+    """images -> CLIP image_embeds [B, proj_dim] (CLS -> ln_post -> proj)."""
+    x = vit_apply(vit_params, images, cfg)
+    cls = L.layer_norm(head_params["ln_post"], x[:, 0], cfg.ln_eps)
+    return L.linear(head_params["proj"], cls)

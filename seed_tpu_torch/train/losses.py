@@ -15,11 +15,18 @@ IGNORE_INDEX = -100
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
-    """Mean CE over non-ignored positions. logits [B,N,V], labels [B,N]."""
+    """Mean CE over non-ignored positions. logits [B,N,V], labels [B,N].
+
+    A label outside [0, V) makes the loss NaN, as seed_tpu's out-of-bounds
+    ``take_along_axis`` fill does (a model whose vocabulary is smaller than
+    the data's ids, such as TINY_LLAMA on image ids); the gather itself
+    stays in bounds, so the card never reads past the logits."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    inside = (safe >= 0) & (safe < logits.shape[-1])
     logp = torch.log_softmax(logits.float(), dim=-1)
-    tok = torch.gather(logp, -1, safe[..., None])[..., 0]
+    tok = torch.gather(logp, -1, safe.clamp(0, logits.shape[-1] - 1)[..., None])
+    tok = torch.where(inside, tok[..., 0], torch.full_like(tok[..., 0], float("nan")))
     return -(tok * valid).sum() / valid.sum().clamp_min(1)
 
 

@@ -15,7 +15,9 @@ An optimizer is a pair of pure functions over trees of tensors, as in
 optax: ``init(params) -> state`` and
 ``update(grads, state, params) -> (updates, new_state)``; the caller adds
 ``updates`` to ``params``. A ``None`` leaf is a leaf the optimizer does not
-own (see ``masked_trainable``).
+own (see ``masked_trainable``): it takes no gradient, holds no moments and
+gets no update. ``Optimizer.trains`` (a predicate on the path string, None
+= every leaf) tells the train step which leaves need gradients at all.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from ..utils.tree import leaves, map_with_path, path_str, tree_map
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Any]
+    trains: Optional[Callable[[str], bool]] = None
 
 
 def cosine_with_floor(base_lr: float, warmup_steps: int, total_steps: int,
@@ -151,34 +154,36 @@ def adamw(schedule: Callable[[int], float], b1: float = 0.9, b2: float = 0.95,
 
 
 def apply_updates(params: Any, updates: Any) -> Any:
-    """``p + u`` in p's dtype, leaf by leaf."""
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    """``p + u`` in p's dtype, leaf by leaf; a leaf whose update is None is
+    handed back as it is (the same tensor)."""
+    return tree_map(lambda p, u: p if u is None else (p + u).to(p.dtype),
+                    params, updates)
 
 
 def masked_trainable(tx: Optimizer, params: Any, trainable_pattern: str) -> Optimizer:
-    """Zero updates for params NOT matching ``trainable_pattern``.
+    """No update for params NOT matching ``trainable_pattern``.
 
     A zero gradient alone does not pin a frozen leaf: AdamW's decoupled
     weight decay still shrinks it. Frozen leaves never reach ``tx`` (they are
     None in the trees it sees, so they carry no moments and stay out of the
-    clip's norm) and get an update of exactly zero. ``params`` is taken for
-    seed_tpu's signature; which leaves train follows from the paths alone."""
+    clip's norm) and their update is None: ``apply_updates`` hands them back
+    untouched, where seed_tpu adds an update of exactly zero. ``trains``
+    tells the train step to take no gradient of them; gradients given for
+    them anyway are ignored. ``params`` is taken for seed_tpu's signature;
+    which leaves train follows from the paths alone."""
     pat = re.compile(trainable_pattern)
-    trains = lambda path: bool(pat.search(path_str(path)))
+    trains = lambda name: bool(pat.search(name))
     keep = lambda tree: map_with_path(
-        lambda p, x: x if trains(p) else None, tree)
+        lambda p, x: x if trains(path_str(p)) else None, tree)
 
     def init(params):
         return tx.init(keep(params))
 
     def update(grads, state, params):
         updates, state = tx.update(keep(grads), state, keep(params))
-        full = map_with_path(
-            lambda p, g, u: u if trains(p) else torch.zeros_like(g),
-            grads, updates)
-        return full, state
+        return updates, state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, trains)
 
 
 def learnable_image_embeddings_only(tx: Optimizer, old_vocab_size: int,
@@ -219,4 +224,4 @@ def learnable_image_embeddings_only(tx: Optimizer, old_vocab_size: int,
         updates, state = tx.update(mask_updates(grads), state, params)
         return mask_updates(updates), state
 
-    return Optimizer(tx.init, update)
+    return Optimizer(tx.init, update, tx.trains)

@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import resolve_device
-from ..utils.tree import leaves, tree_map
+from ..utils.tree import leaves_with_path, map_with_path, path_str, tree_map
 from .optim import Optimizer, apply_updates, global_norm
 
 
@@ -33,50 +33,69 @@ class TrainerConfig:
     log_every: int = 50
 
 
-def make_train_step(loss_fn: Callable[..., torch.Tensor],   # (params, batch, rng) -> scalar
+def make_train_step(loss_fn: Callable[..., Any],   # (params, batch, rng) -> loss
                     optimizer: Optimizer, grad_accum: int = 1):
     """Build a (state, batch, rng) -> (state, metrics) step.
 
+    ``loss_fn`` returns a scalar, or (scalar, dict of scalar metrics) whose
+    metrics join the step's. Gradients are taken of the leaves the optimizer
+    trains (``optimizer.trains``; every leaf when it is None); the others
+    are handed to the loss as they are and get no gradient, so a frozen
+    tower costs no gradient memory (seed_tpu takes its gradient, zero under
+    stop_gradient, and drops it in the optimizer).
+
     With grad_accum > 1, ``batch`` leaves have a leading
     [grad_accum, micro_batch, ...] layout; each micro-batch's loss and
-    gradients are taken in turn, gradients are summed in fp32, and both are
-    averaged over the micro-batches. ``rng`` goes to every loss call as it
-    is (a torch.Generator advances by itself; seed_tpu folds the micro-batch
-    index into a key). Metrics: the mean ``loss`` and the ``grad_norm``
-    before clipping. The state is not modified; a new one is returned."""
+    gradients are taken in turn, gradients are summed in fp32, and losses,
+    metrics and gradients are averaged over the micro-batches. ``rng`` goes
+    to every loss call as it is (a torch.Generator advances by itself;
+    seed_tpu folds the micro-batch index into a key). Metrics: the mean
+    ``loss``, the loss's own metrics and the ``grad_norm`` before clipping.
+    The state is not modified; a new one is returned."""
+    trains = optimizer.trains or (lambda name: True)
 
     def single_grads(params, batch, rng):
-        live = tree_map(lambda p: p.detach().requires_grad_(), params)
-        flat = leaves(live)
-        loss = loss_fn(live, batch, rng)
-        found = dict(zip(map(id, flat),
-                         torch.autograd.grad(loss, flat, allow_unused=True)))
+        live = map_with_path(
+            lambda p, x: x.detach().requires_grad_() if trains(path_str(p))
+            else x, params)
+        owned = [(name, x) for name, x in leaves_with_path(live)
+                 if trains(name)]
+        out = loss_fn(live, batch, rng)
+        loss, aux = out if isinstance(out, tuple) else (out, {})
+        found = dict(zip((name for name, _ in owned), torch.autograd.grad(
+            loss, [x for _, x in owned], allow_unused=True)))
         # a leaf the loss does not touch (LoRA's fixed scale) has gradient 0
-        grads = tree_map(
-            lambda p: torch.zeros_like(p) if found[id(p)] is None
-            else found[id(p)], live)
-        return loss.detach(), grads
+
+        def grad(p, x):
+            name = path_str(p)
+            if not trains(name):
+                return None
+            return torch.zeros_like(x) if found[name] is None else found[name]
+        aux = {k: v.detach().float() for k, v in aux.items()}
+        return loss.detach(), aux, map_with_path(grad, live)
 
     def step(state: TrainState, batch, rng) -> Tuple[TrainState, Dict]:
         if grad_accum == 1:
-            loss, grads = single_grads(state.params, batch, rng)
+            loss, aux, grads = single_grads(state.params, batch, rng)
         else:
-            loss, grads = None, None
+            loss, aux, grads = None, None, None
             for i in range(grad_accum):
                 micro = tree_map(lambda x: x[i], batch)
-                l_i, g_i = single_grads(state.params, micro, rng)
+                l_i, a_i, g_i = single_grads(state.params, micro, rng)
                 g_i = tree_map(lambda g: g.float(), g_i)
                 loss = l_i.float() if loss is None else loss + l_i
+                aux = a_i if aux is None else {k: aux[k] + a_i[k] for k in aux}
                 grads = g_i if grads is None else tree_map(
                     lambda a, g: a + g, grads, g_i)
             loss = loss / grad_accum
+            aux = {k: v / grad_accum for k, v in aux.items()}
             grads = tree_map(lambda g: g / grad_accum, grads)
 
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 state.params)
             new_params = apply_updates(state.params, updates)
-            metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+            metrics = {"loss": loss, **aux, "grad_norm": global_norm(grads)}
         return TrainState(state.step + 1, new_params, new_opt), metrics
 
     return step

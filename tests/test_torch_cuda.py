@@ -468,3 +468,93 @@ def test_unclip_decoder_generates_pixels(gen):
     side = cfg.latent_size * cfg.vae.upscale
     assert img.shape == (2, side, side, 3) and img.min() >= 0 and img.max() <= 1
     assert (img == dec.generate(emb)).all()
+
+
+# ------------------------ tokenizer training (stages 1 and 2) ----------------
+
+def _to(tree, device):
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def test_qformer_text_and_caption_paths_card_vs_cpu(gen):
+    """The Q-Former's text, joint and caption paths and the LM head at full
+    width (12 layers, BERT vocabulary) on the card against the same calls on
+    the CPU, fp32 with TF32 off: 1e-4 of the output's scale."""
+    import dataclasses
+    from seed_tpu_torch.models import qformer as TQ
+    cfg = dataclasses.replace(TQ.SEED_QFORMER, with_text=True)
+    p = TQ.init_qformer(gen, cfg)
+    head = TQ.init_lm_head(gen, cfg)
+    feats = torch.randn((4, 257, cfg.encoder_width), generator=gen,
+                        device="cuda")
+    ids = torch.randint(3, cfg.vocab_size, (4, 32), generator=gen, device="cuda")
+    pad = (torch.arange(32, device="cuda")[None] < torch.tensor(
+        [32, 20, 9, 2], device="cuda")[:, None]).int()
+    cpu = lambda *a: [x.cpu() if isinstance(x, torch.Tensor) else _to(x, "cpu")
+                      for x in a]
+
+    def both(fn, *args):
+        got = fn(*args)
+        want = fn(*cpu(*args))
+        scale = want.abs().max()
+        assert ((got.cpu() - want).abs().max() / scale).item() <= 1e-4
+        return got
+
+    both(lambda p, i, m: TQ.qformer_text_apply(p, i, cfg, m), p, ids, pad)
+    both(lambda p, f, i, m: TQ.qformer_apply(p, f, cfg, text_ids=i,
+                                             text_pad=m), p, feats, ids, pad)
+    h = both(lambda p, f, i, m: TQ.qformer_caption_apply(p, f, i, cfg, m),
+             p, feats, ids, pad)
+    both(lambda hd, p, h: TQ.lm_head_apply(
+        hd, p["embeddings"]["word_embeddings"], h, cfg), head, p, h)
+
+
+def test_clip_image_embed_and_stage2_loss_card_vs_cpu(gen, no_tf32):
+    """The CLIP target tower (ln_pre, no patch bias) and the stage-2 loss
+    with both distill heads, on the card against the CPU, fp32 with TF32
+    off: 1e-4 relative."""
+    import dataclasses
+    from seed_tpu_torch.models import seed_tokenizer as TST
+    from seed_tpu_torch.models import vit as TV
+    from seed_tpu_torch.train import tokenizer_training as TTT
+    vit = TV.ViTConfig(image_size=224, patch_size=14, dim=176, depth=2,
+                       heads=2, mlp_dim=256)
+    clip_cfg = dataclasses.replace(vit, qkv_bias="full", ln_pre=True,
+                                   patch_bias=False)
+    clip = {"vit": TV.init_vit(gen, clip_cfg),
+            "head": TV.init_clip_vision_projection(gen, clip_cfg, 64)}
+    imgs = torch.randn((4, 224, 224, 3), generator=gen, device="cuda")
+    got = TV.clip_image_embed(clip["vit"], clip["head"], imgs, clip_cfg)
+    want = TV.clip_image_embed(_to(clip["vit"], "cpu"), _to(clip["head"], "cpu"),
+                               imgs.cpu(), clip_cfg)
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-4
+    for reverse in (True, False):
+        tcfg = dataclasses.replace(
+            TST.TINY_TOKENIZER, vit=vit, image_embed_dim=64,
+            qformer=dataclasses.replace(TST.TINY_TOKENIZER.qformer,
+                                        encoder_width=176),
+            with_recon_blocks=True, use_qformer_image=reverse)
+        cfg = TTT.Stage2Config(tokenizer=tcfg)
+        p = TST.init_seed_tokenizer(gen, tcfg)
+        batch = {"images": imgs, "clip_embeds": got}
+        loss, m = TTT.stage2_loss(p, batch, None, cfg)
+        loss_c, m_c = TTT.stage2_loss(_to(p, "cpu"), _to(batch, "cpu"), None,
+                                      cfg)
+        for k in ("vq", "recon", "distill", "codebook_usage"):
+            assert abs(m[k].item() - m_c[k].item()) <= 1e-4 * max(
+                1.0, abs(m_c[k].item())), k
+        assert abs(loss.item() - loss_c.item()) <= 1e-4 * abs(loss_c.item())
+
+
+def test_short_mha_fp32_at_the_stage1_shape(gen):
+    """Row 1's fp32 instance on the tokenizer training path: B=16, S=257,
+    H=16, D=88, the fast epilogue (the ones column), 2e-5 against its plain
+    version, one launch."""
+    B, S, H, D = 16, 257, 16, 88
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen, device="cuda")
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    before = short_mha.launches
+    got = short_mha(q, k, v, D ** -0.5, False)
+    assert short_mha.launches == before + 1
+    want = short_mha_plain(q, k, v, D ** -0.5, False)
+    assert (got - want).abs().max().item() <= 2e-5
