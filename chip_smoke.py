@@ -19,8 +19,10 @@ Phases, each printing lines of its own:
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
              8 uint8 images -> preprocess -> 32 ids each, exact and fast.
 5. serve   — SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by
-             layer: batched LlamaEngine.generate and SeedLlamaInterface
-             requests, greedy and sampled.
+             layer, built by instantiate(load_config(
+             "configs/seed_llama_8b_8bit.json")): batched
+             LlamaEngine.generate and SeedLlamaInterface requests, greedy
+             and sampled.
 6. server  — the throughput server on the same 8B int8 weights: the W8A8
              encoder (quantize_for_serving + serving_fast_config: 156
              w8a8_matmul launches per encode); a ScheduledEngine with 16 fp8
@@ -52,12 +54,26 @@ Phases, each printing lines of its own:
              text pathway, batch 16, 3 steps, saved), then stage 2 from that
              checkpoint with the random CLIP-ViT-H targets computed inline
              (2 steps); short_mha's fp32 launch at that shape timed.
+11. eval   — 11a (after phase 8, on its objects): reconstruction FID and
+             IS of the de-tokenizer's pixels (the 8 images encoded, decoded
+             to 768x768, Inception-v3 pool3 against the originals; IS over
+             the logits), Inception fp32 on the card against the CPU and in
+             bf16; 11b: evaluate_vqa over a VQA jsonl and 8 JPEGs written
+             under build/, through SEED-LLaMA-8B int8 (one batched prefill of
+             8 prompts); 11c (after phase 10): the Q-Former caption
+             generators, recompute and cached, on phase 10's stage-1
+             checkpoint, 16 images, scored with caption_metrics; 11d: the
+             discrete vision model at DVMConfig() on the frozen CLIP-ViT-H
+             tower (3 timed Trainer steps, a fourth under profile_trace), then its
+             CLIP-embed variant with a k-means-initialised norm-EMA codebook.
+             11c and 11d log through MetricLogger and time with StepTimer.
 
 Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
-phase 9 (train_llm) and phase 10 (train_tokenizer) are the main paths: the
-launch counters of a path's kernels are set to 0 just before it and read just
-after. Phase 8 launches none of the six kernels (its lines show the counts)
-and is counted on no path.
+phase 9 (train_llm), phase 10 (train_tokenizer) and phases 11a-11b (eval)
+are the main paths: the launch counters of a path's kernels are set to 0
+just before it and read just after. Phase 8 launches none of the six kernels
+(its lines show the counts) and is counted on no path; nor are 11c and 11d
+(11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
 one before that the card.
@@ -331,9 +347,14 @@ def _repeat_bits(kernel: str, label: dict, run, first) -> None:
                              "inputs gave other bits")
 
 
+# M of the 8B prefill in phase 11b: 8 VQA prompts padded to bucket 256
+VQA_PREFILL_M = 8 * 256
+
+
 def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     """Kernel row 2 against its plain version: the four (K, N) pairs of the
-    8B prefill at M = 4 x 64, bf16 x, and 4096 x 4096 at M = 512 (the
+    8B prefill at M = 4 x 64 (phase 3) and at VQA_PREFILL_M (phase 11b, no
+    split, several waves), bf16 x, and 4096 x 4096 at M = 512 (the
     scheduler's bucket); fp32 x and a ragged M once each. Every case is
     repeated bit for bit and timed beside the plain version, two library
     yardsticks and the bound. Tolerance, relative to max|y|: bf16 2**-7 (one
@@ -351,7 +372,8 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     worst = 0.0
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, gemm_ms=0.0)
     ops_total = bytes_total = 0.0
-    cases = [(256, K, N, torch.bfloat16) for (K, N) in per_prefill]
+    cases = [(M, K, N, torch.bfloat16) for M in (256, VQA_PREFILL_M)
+             for (K, N) in per_prefill]
     cases += [(512, 4096, 4096, torch.bfloat16), (256, 4096, 4096, torch.float32),
               (300, 4096, 11008, torch.bfloat16)]
     for M, K, N, dtype in cases:
@@ -383,18 +405,23 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
         nbytes = M * K * dtype.itemsize + K * N + N * 4 + M * N * dtype.itemsize
         flops = 2 * M * N * K
         bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
-        n = per_prefill.get((K, N), 0) if (M, dtype) == (256, torch.bfloat16) else 0
+        in_prefill = dtype == torch.bfloat16 and M in (256, VQA_PREFILL_M)
+        n = per_prefill.get((K, N), 0) if in_prefill else 0
+        # the record averages phase 3's prefill; 11b's is reported per case
+        serve = n if M == 256 else 0
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("gemm_ms", gemm)):
-            tot[key] += n * val
-        bytes_total += n * nbytes
-        ops_total += n * flops
+            tot[key] += serve * val
+        bytes_total += serve * nbytes
+        ops_total += serve * flops
         bf16 = dtype == torch.bfloat16
         plan = int8_plan(M, N, K) if bf16 else None
         main = built.get("int8_mm_bf16", {}) if bf16 else {}
         emit("kernels", kernel="int8_matmul", **label, plan=plan,
              max_abs_err=err, rel_err=rel, tol_rel=limit, repeats_bits=True,
-             launches_per_prefill=n, card=name, ms=ms, plain_ms=plain,
+             launches_per_prefill=n, prefill=("phase 3 serve" if M == 256
+                                              else "phase 11b VQA")
+             if n else None, card=name, ms=ms, plain_ms=plain,
              library_ms=lib, library="x @ w.to(x.dtype) * scale",
              gemm_ms=gemm, gemm="x @ w_bf16, converted before the timing",
              bound_ms=bms, bound_by=by, tflops=flops / ms * 1e-9,
@@ -410,7 +437,7 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     record = {key: val / n for key, val in tot.items()}
     record.update(bound_ms=bms, bound_by=by, max_abs_err=worst)
     emit("kernels", kernel="int8_matmul", summary="mean per launch over one "
-         "8B prefill (225 launches)", card=name, **record)
+         "8B prefill at M = 256 (phase 3, 225 launches)", card=name, **record)
     return {"int8_matmul": record}
 
 
@@ -775,15 +802,19 @@ def _check_segments(label: str, mode: str, segments) -> None:
 
 
 def init_llama_int8(name: str):
-    """SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by layer."""
+    """SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by layer,
+    built from configs/seed_llama_8b_8bit.json through the registry."""
+    import seed_tpu_torch.registry_defs  # noqa: F401  (registers the names)
     from seed_tpu_torch.models import llama as M
-    from seed_tpu_torch.ops.quantization import DEFAULT_TARGETS
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    from seed_tpu_torch.utils.registry import instantiate, load_config
+    path = Path(__file__).resolve().parent / "configs" / "seed_llama_8b_8bit.json"
     t0 = time.perf_counter()
-    params = M.init_llama(gen, M.SEED_LLAMA_8B, torch.bfloat16,
-                          quantize_targets=DEFAULT_TARGETS)
+    params, cfg = instantiate(load_config(str(path)), seed=SEED + 1)
     torch.cuda.synchronize()
-    emit("serve", what="init SEED_LLAMA_8B, int8 layer by layer",
+    if cfg != M.SEED_LLAMA_8B or "kernel_q" not in params["layers"][0]["q_proj"]:
+        raise AssertionError(f"{path.name} did not build the 8B int8 model")
+    emit("serve", what="init SEED_LLAMA_8B, int8 layer by layer, through "
+         "instantiate(load_config('configs/seed_llama_8b_8bit.json'))",
          seconds=time.perf_counter() - t0,
          gib_allocated=torch.cuda.memory_allocated() / 2 ** 30, card=name)
     return params
@@ -1909,32 +1940,27 @@ def _tokenizer_stage(name: str, stage: int, argv: list, metric_keys):
     return got
 
 
-def phase_train_tokenizer(name: str, flush: torch.Tensor) -> dict:
-    """``train_tokenizer`` stage 1 (3 steps, saved) then stage 2 from that
-    checkpoint (2 steps); then short_mha's fp32 launch at stage 1's shape
-    against its plain version and SDPA. Returns (launches over both
-    stages, the fp32 record)."""
+def phase_train_tokenizer(name: str, flush: torch.Tensor, tmp: Path):
+    """``train_tokenizer`` stage 1 (3 steps, saved under ``tmp``) then stage
+    2 from that checkpoint (2 steps); then short_mha's fp32 launch at stage
+    1's shape against its plain version and SDPA. Returns (launches over
+    both stages, the fp32 record, the stages' common arguments)."""
     import torch.nn.functional as F
     from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
-    scratch = Path(__file__).resolve().parent / "build"
-    scratch.mkdir(exist_ok=True)
     launches = 0
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        tmp = Path(tmp)
-        common = ["--data", write_image_tar(tmp), *TOK_ARGS]
-        launches += _tokenizer_stage(
-            name, 1, common + ["--stage", "1", "--steps", "3",
-                               "--save-steps", "3",
-                               "--output", str(tmp / "s1")],
-            ("itc", "itm", "lm"))
-        torch.cuda.empty_cache()
-        launches += _tokenizer_stage(
-            name, 2, common + ["--stage", "2", "--steps", "2",
-                               "--save-steps", "2", "--init-ckpt",
-                               str(tmp / "s1" / "step_3"),
-                               "--output", str(tmp / "s2")],
-            ("vq", "recon", "distill", "codebook_usage"))
-        torch.cuda.empty_cache()
+    common = ["--data", write_image_tar(tmp), *TOK_ARGS]
+    launches += _tokenizer_stage(
+        name, 1, common + ["--stage", "1", "--steps", "3",
+                           "--save-steps", "3", "--output", str(tmp / "s1")],
+        ("itc", "itm", "lm"))
+    torch.cuda.empty_cache()
+    launches += _tokenizer_stage(
+        name, 2, common + ["--stage", "2", "--steps", "2",
+                           "--save-steps", "2", "--init-ckpt",
+                           str(tmp / "s1" / "step_3"),
+                           "--output", str(tmp / "s2")],
+        ("vq", "recon", "distill", "codebook_usage"))
+    torch.cuda.empty_cache()
 
     # row 1's fp32 instance at the stage-1 step's shape: the fast epilogue
     # (D = 88: the ones column), 2e-5 against its plain version
@@ -1959,7 +1985,414 @@ def phase_train_tokenizer(name: str, flush: torch.Tensor) -> dict:
     short_mha.launches = before          # comparison launches are not counted
     emit("kernels", kernel="short_mha", what="the stage-1 step's fp32 "
          "launch", **fp32, card=name)
-    return launches, fp32
+    return launches, fp32, common
+
+
+# -------------------------------------------------------------- phase 11
+
+# Inception-v3 in fp32 on the card (TF32 off) against the same function on
+# the CPU: the two differ only in the order of their sums, through about a
+# hundred convolutions, within 1e-3 of the largest |feature|
+INCEPTION_TOL = 1e-3
+# codes per de-tokenizer call in the FID harness: a CFG batch of 4 through
+# the UNet, whose level-0 attention scores take 2 GiB a pair
+DECODE_BATCH = 2
+VQA_QUESTIONS = ("What is the main colour of this picture?",
+                 "How many objects can you see here?",
+                 "Is this photo taken indoors or outdoors?",
+                 "What is the texture on the left side of the image?")
+
+
+def _sync_ms(fn):
+    """(fn's result, its wall ms with the card synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_fid(name: str, tok_params, raw: torch.Tensor, codes: torch.Tensor,
+              decoder) -> None:
+    """11a. Reconstruction FID and IS of the de-tokenizer's pixels: the 8
+    images encoded again (exact flash config), decoded to 768x768 by the
+    bf16 unCLIP decoder (20 DDIM steps), against the originals' Inception
+    pool3 features; Inception fp32 on the card against the CPU, and bf16."""
+    from seed_tpu_torch.eval import (fid, generate_images_for_fid,
+                                     inception_pool3, inception_probs,
+                                     inception_score, init_inception)
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.models.layers import cast_tree
+    from seed_tpu_torch.ops.preprocess import preprocess
+    from seed_tpu_torch.utils.tree import tree_map
+    inc = init_inception(torch.Generator(device="cuda").manual_seed(SEED + 12),
+                         with_fc=True)
+    n = raw.shape[0]
+    real01 = raw.float() / 255.0
+    with torch.inference_mode():
+        again = ST.encode(tok_params, preprocess(raw, 224, torch.bfloat16),
+                          _flash_cfg(ST.SEED_TOKENIZER, True))
+    if not torch.equal(again, codes):
+        raise AssertionError("FID: the real images' codes differ from phase "
+                             "4's encode")
+    inception_pool3(inc, real01)        # warm-up: cuDNN picks per shape
+    real, real_ms = _sync_ms(lambda: inception_pool3(inc, real01))
+    if real.shape != (n, 2048) or not real.isfinite().all():
+        raise AssertionError(f"FID: bad real features {tuple(real.shape)}")
+    want = inception_pool3(tree_map(lambda t: t.cpu(), inc),
+                           real01[:DECODE_BATCH].cpu())
+    scale = want.abs().max().item()
+    rel = (real[:DECODE_BATCH].cpu() - want).abs().max().item() / scale
+    if not (math.isfinite(rel) and rel <= INCEPTION_TOL):
+        raise AssertionError(f"Inception fp32 card vs CPU: {rel} of the "
+                             f"largest |feature| (bound {INCEPTION_TOL})")
+    inc16 = cast_tree(inc, torch.bfloat16)
+    inception_pool3(inc16, real01, dtype=torch.bfloat16)         # warm-up
+    f16, bf16_ms = _sync_ms(lambda: inception_pool3(inc16, real01,
+                                                    dtype=torch.bfloat16))
+    rel16 = ((f16.float() - real).abs().max() / real.abs().max()).item()
+    del inc16
+
+    images, decode_ms = [], []
+
+    def decode(c: np.ndarray) -> torch.Tensor:
+        def run():
+            with torch.inference_mode():
+                emb = ST.decode_embedding(tok_params, torch.as_tensor(
+                    c, device="cuda"), ST.SEED_TOKENIZER).float()
+            return decoder.generate(emb)
+        img, ms = _sync_ms(run)
+        images.append(img)
+        decode_ms.append(ms)
+        return torch.from_numpy(img).cuda()
+
+    fake = generate_images_for_fid(decode, codes.split(DECODE_BATCH),
+                                   lambda x: inception_pool3(inc, x))
+    pixels = torch.from_numpy(np.concatenate(images)).cuda()
+    side = decoder.cfg.latent_size * decoder.cfg.vae.upscale
+    if (fake.shape != (n, 2048) or not np.isfinite(fake).all()
+            or pixels.shape != (n, side, side, 3)):
+        raise AssertionError(f"FID: bad generated features {fake.shape} or "
+                             f"pixels {tuple(pixels.shape)}")
+    probs, probs_ms = _sync_ms(lambda: inception_probs(inc, pixels * 2 - 1))
+    t0 = time.perf_counter()
+    score = fid(real.cpu().numpy(), fake)
+    fid_ms = (time.perf_counter() - t0) * 1e3
+    is_mean, is_std = inception_score(probs.cpu().numpy(), splits=2)
+    if not (math.isfinite(score) and score > -1e-3 and math.isfinite(is_mean)
+            and is_mean >= 1.0 - 1e-4):
+        raise AssertionError(f"FID {score}, IS {is_mean}")
+    emit("eval", part="11a reconstruction FID / IS", images=n,
+         what="raw -> encode (exact flash) -> decode_embedding -> unCLIP "
+         "768x768 (bf16, offload, 20 DDIM steps) -> Inception pool3 "
+         "(align-corners resize to 299) against the real pixels; IS over "
+         "the antialiased 768 -> 299 logits, 2 splits; random weights",
+         fid=score, inception_score=[is_mean, is_std],
+         decode_ms_per_image=sum(decode_ms) / n,
+         decode_ms_per_call=decode_ms,
+         inception_pool3_ms_per_image_fp32=real_ms / n,
+         inception_pool3_ms_per_image_bf16=bf16_ms / n,
+         inception_probs_ms_per_image_768=probs_ms / n,
+         host_fid_ms=fid_ms,
+         fp32_card_vs_cpu_rel_err=rel, tol=INCEPTION_TOL,
+         bf16_vs_fp32_rel_err=rel16, card=name)
+
+
+def write_vqa_set(root: Path, raw: torch.Tensor) -> str:
+    """8 JPEGs of the raw images and a VQA jsonl over them."""
+    from PIL import Image
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / "vqa.jsonl", "w") as f:
+        for i, img in enumerate(raw.cpu().numpy()):
+            Image.fromarray(img).save(root / f"img_{i}.jpg", quality=90)
+            f.write(json.dumps({
+                "image": f"img_{i}.jpg", "question_id": 100 + i,
+                "question": VQA_QUESTIONS[i % len(VQA_QUESTIONS)],
+                "answer": ["red", "three", "outdoors", "noise"][i % 4]}) + "\n")
+    return str(root / "vqa.jsonl")
+
+
+def phase_vqa(name: str, params, tok_params, raw: torch.Tensor) -> None:
+    """11b. VQA through SEED-LLaMA-8B int8: evaluate_vqa over a VQA jsonl
+    and its JPEGs, each batch of 8 encoded (exact flash config) and
+    answered in one batched generate (greedy, 8 new tokens)."""
+    from seed_tpu_torch.eval import evaluate_vqa, vqa_eval_stream
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.ops.int8_matmul import can_use_kernel, int8_matmul
+    from seed_tpu_torch.ops.preprocess import preprocess
+    from seed_tpu_torch.serving.engine import GenerationConfig, LlamaEngine
+    from seed_tpu_torch.serving.multimodal import (ByteTextTokenizer,
+                                                   SeedLlamaInterface)
+    cfg = M.SEED_LLAMA_8B
+    engine = LlamaEngine(params, cfg, max_len=512)
+    iface = SeedLlamaInterface(engine, tok_params,
+                               _flash_cfg(ST.SEED_TOKENIZER, True),
+                               ByteTextTokenizer())
+    gcfg = GenerationConfig(max_new_tokens=8, do_sample=False)
+    calls = []
+
+    def generate_fn(batch):
+        pixels = torch.from_numpy(np.stack([r["pixels"] for r in batch]))
+        codes = iface.encode_image(preprocess(pixels.cuda(), 224,
+                                              torch.bfloat16))
+        prompts = [iface.build_prompt([c, r["question"]])
+                   for c, r in zip(codes, batch)]
+        before = int8_matmul.launches
+        outs, ms = _sync_ms(lambda: engine.generate(prompts, gcfg))
+        m = len(prompts) * engine._bucket(max(len(p) for p in prompts))
+        answers = ["".join(s.text for s in iface.split_output(o)
+                           if s.kind == "text") for o in outs]
+        calls.append(dict(prompts=len(prompts),
+                          prompt_tokens=[len(p) for p in prompts],
+                          prefill_m=m, int8_kernel=can_use_kernel(m, cfg.dim,
+                                                                  cfg.dim),
+                          int8_matmul_launches=int8_matmul.launches - before,
+                          generate_ms=ms,
+                          records=[{"question_id": r["question_id"],
+                                    "answer": a}
+                                   for r, a in zip(batch, answers)]))
+        return answers
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent
+                                     / "build") as tmp:
+        ann = write_vqa_set(Path(tmp), raw)
+        scores = evaluate_vqa(generate_fn, vqa_eval_stream(ann, tmp, 224),
+                              batch_size=8)
+    if scores["num_evaluated"] != raw.shape[0] or len(calls) != 1:
+        raise AssertionError(f"VQA: {scores}, {len(calls)} generate calls")
+    if not (calls[0]["int8_kernel"] and calls[0]["prefill_m"] == VQA_PREFILL_M
+            and calls[0]["int8_matmul_launches"] == 7 * cfg.layers + 1):
+        raise AssertionError(f"VQA: the prefill (M = {calls[0]['prefill_m']},"
+                             f" checked at {VQA_PREFILL_M}) did not take the "
+                             f"int8 kernel {calls[0]['int8_matmul_launches']} "
+                             "times")
+    if not 0.0 <= scores["vqa_accuracy"] <= 1.0:
+        raise AssertionError(f"VQA accuracy {scores['vqa_accuracy']}")
+    emit("eval", part="11b VQA through SEED-LLaMA-8B int8",
+         what="evaluate_vqa(vqa_eval_stream(jsonl + 8 JPEGs), batch 8): "
+         "encode (exact flash) -> one batched greedy generate, 8 new tokens; "
+         "random weights, so the score means nothing", **scores,
+         generate=calls, card=name)
+
+
+def phase_captions(name: str, tmp: Path, common: list, logger) -> None:
+    """11c. The tokenizer's caption generators on phase 10's stage-1
+    checkpoint (the full Q-Former, its BERT vocabulary and LM head; the
+    frozen EVA-ViT-g from the run's seed), 16 images of the training tar,
+    fp32, max_len 24: recompute and cached give the same tokens; scored
+    with caption_metrics against the tar's captions."""
+    import itertools
+    from seed_tpu_torch.eval import caption_metrics
+    from seed_tpu_torch.models import layers as L
+    from seed_tpu_torch.models import qformer as Q
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.models.vit import vit_apply
+    from seed_tpu_torch.ops.preprocess import preprocess
+    from seed_tpu_torch.serving.multimodal import ByteTextTokenizer
+    from seed_tpu_torch.train import train_tokenizer as TT
+    from seed_tpu_torch.train.entry import generator
+    from seed_tpu_torch.utils.checkpoint import merge_tree, restore_checkpoint
+    from seed_tpu_torch.utils.metrics_logging import StepTimer
+    args = TT.parse_args(common + ["--stage", "1", "--steps", "1",
+                                   "--output", str(tmp / "captions")])
+    ck = restore_checkpoint(str(tmp / "s1" / "step_3"))
+    if not {"tokenizer", "lm_head"} <= set(ck):
+        raise AssertionError(f"stage-1 checkpoint holds {sorted(ck)}")
+    base = ST.SEED_TOKENIZER
+    cfg = dataclasses.replace(
+        base, vit=dataclasses.replace(base.vit, use_flash=True),
+        qformer=dataclasses.replace(base.qformer, with_text=True))
+    tok = merge_tree(ST.init_seed_tokenizer(generator(torch.device("cuda"),
+                                                      args.seed), cfg),
+                     ck["tokenizer"])
+    recs = list(itertools.islice(TT.example_stream(args), 16))
+    text = ByteTextTokenizer()
+    with torch.inference_mode():
+        imgs = preprocess(torch.from_numpy(np.stack(
+            [r["pixels"] for r in recs])).cuda(), 224, torch.float32)
+        feats = L.layer_norm(tok["ln_vision"],
+                             vit_apply(tok["vit"], imgs, cfg.vit))
+    qcfg = cfg.qformer
+    if ck["lm_head"]["bias"].shape != (qcfg.vocab_size,) or \
+            qcfg.vocab_size != 30523:
+        raise AssertionError("captions: the LM head is not the BERT vocabulary")
+    timer = StepTimer()
+    tokens = {}
+    for label, fn in (("recompute", Q.qformer_generate_caption),
+                      ("cached", Q.qformer_generate_caption_cached)):
+        for _ in range(2):                 # the second run is timed
+            timer.start()
+            tokens[label] = fn(tok["qformer"], ck["lm_head"], feats, qcfg,
+                               text.bos_token_id, text.eos_token_id, 24)
+            ms = timer.stop(sync=tokens[label]) * 1e3
+        logger.update(**{f"caption_{label}_ms": ms})
+    a, b = tokens["recompute"], tokens["cached"]
+    if a.shape != (16, 24) or a.dtype != torch.int32 or not torch.equal(a, b):
+        raise AssertionError("captions: cached and recompute tokens differ")
+    captions = [text.decode(row[1:].tolist()) for row in a]
+    scores = caption_metrics(
+        [{"image_id": i, "caption": c} for i, c in enumerate(captions)],
+        {i: [r["text"]] for i, r in enumerate(recs)})
+    logger.write_json_line(part="11c", **scores)
+    emit("eval", part="11c tokenizer captions",
+         what="qformer_generate_caption and _cached on phase 10's stage-1 "
+         "checkpoint (full Q-Former, 30,523-word LM head), 16 images, fp32, "
+         "max_len 24, greedy", identical_tokens=True,
+         recompute_ms=logger.meters["caption_recompute_ms"].global_avg,
+         cached_ms=logger.meters["caption_cached_ms"].global_avg,
+         caption_metrics=scores, first_caption=captions[0], card=name)
+
+
+def dvm_trainer(gen: torch.Generator):
+    """The discrete vision model at DVMConfig() on the frozen, random
+    CLIP-ViT-H tower with its projection (bf16, mha), the trainable parts
+    in fp32, AdamW through Trainer. Returns (cfg, trainer)."""
+    from seed_tpu_torch.models import discrete_vision as DV
+    from seed_tpu_torch.models.vit import (CLIP_VIT_H,
+                                           init_clip_vision_projection,
+                                           init_vit)
+    from seed_tpu_torch.train.optim import adamw, masked_trainable
+    from seed_tpu_torch.train.trainer import Trainer
+    cfg = DV.DVMConfig()
+    params = {"dvm": DV.init_dvm(gen, cfg),
+              "tower": init_vit(gen, CLIP_VIT_H, torch.bfloat16),
+              "head": init_clip_vision_projection(gen, CLIP_VIT_H,
+                                                  cfg.proj_dim,
+                                                  torch.bfloat16)}
+
+    def loss_fn(p, batch, rng):
+        total, m = DV.dvm_loss(p["dvm"], p["tower"], p["head"],
+                               batch["images"], cfg, CLIP_VIT_H)
+        return total, {k: m[k] for k in ("loss_rec", "loss_quant",
+                                         "loss_iti")}
+
+    tx = masked_trainable(adamw(lambda step: 1e-4, b2=0.999,
+                                weight_decay=0.05), params, r"^dvm/")
+    return cfg, Trainer(loss_fn, params, tx)
+
+
+def phase_dvm(name: str, logger) -> None:
+    """11d. The discrete vision model: 3 timed Trainer steps of dvm_loss at
+    DVMConfig() on CLIP-ViT-H (batch 16 at 224) and a fourth under
+    profile_trace, timed apart; then 3 steps of dvm_clip_embed_loss (transformer
+    encoder, norm-EMA codebook from kmeans_init_codebook, norm_ema_update
+    after each step)."""
+    from seed_tpu_torch.models import discrete_vision as DV
+    from seed_tpu_torch.models import quantizer as Q
+    from seed_tpu_torch.models.layers import count_params
+    from seed_tpu_torch.models.vit import CLIP_VIT_H, clip_image_embed
+    from seed_tpu_torch.train.optim import adamw, masked_trainable
+    from seed_tpu_torch.train.trainer import Trainer
+    from seed_tpu_torch.utils.metrics_logging import StepTimer, profile_trace
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, trainer = dvm_trainer(gen)
+    params = trainer.state.params
+    frozen = {k: _fingerprint(params[k]) for k in ("tower", "head")}
+    imgs = torch.randn((16, 224, 224, 3), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    timer, step_ms, losses = StepTimer(), [], []
+
+    def step(i):
+        timer.start()
+        m = trainer.step({"images": imgs})
+        ms = timer.stop(sync=m["loss"]) * 1e3
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m)
+        logger.update(**{f"dvm_{k}": v for k, v in m.items()})
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"DVM step {i}: {m}")
+        return ms
+
+    for i in range(3):
+        step_ms.append(step(i))
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent
+                                     / "build") as trace_dir:
+        with profile_trace(trace_dir):
+            profiled_ms = step(3)
+        traces = list(Path(trace_dir).glob("trace_*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"DVM: profile_trace wrote {len(traces)} "
+                                 "traces, not 1")
+        trace_bytes = traces[0].stat().st_size
+    for k in ("tower", "head"):
+        if _fingerprint(trainer.state.params[k]) != frozen[k]:
+            raise AssertionError(f"DVM: the frozen {k} changed")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    logger.write_json_line(part="11d dvm_loss")
+    emit("eval", part="11d discrete vision model, dvm_loss",
+         what="DVMConfig() (4 + 4 blocks of 1280, 8192 x 32 codebook, fp32) "
+         "on the frozen random CLIP-ViT-H (32 blocks of 1280, bf16, mha) "
+         "with its projection, batch 16 at 224, AdamW, 3 timed Trainer "
+         "steps, then a fourth under profile_trace", step_ms=step_ms,
+         profiled_step_ms=profiled_ms, losses=losses,
+         trainable_params=count_params(params["dvm"]),
+         frozen_params=count_params(params["tower"]) + count_params(
+             params["head"]), frozen_bit_identical=True,
+         trace_bytes=trace_bytes,
+         max_memory_allocated_gib=peak, card=name)
+
+    # the FroClipEmbed variant on the same tower's pooled embeddings
+    with torch.no_grad():
+        embeds = clip_image_embed(params["tower"], params["head"], imgs,
+                                  CLIP_VIT_H).float()
+    del trainer, params
+    torch.cuda.empty_cache()
+    ecfg = DV.ClipEmbedDVMConfig(encoder="transformer", quantizer="norm_ema")
+    p = DV.init_clip_embed_dvm(gen, ecfg)
+    with torch.no_grad():
+        _, m0 = DV.dvm_clip_embed_loss(p, embeds, ecfg)
+    cb = Q.kmeans_init_codebook(gen, m0["z"].reshape(-1, ecfg.code_dim),
+                                ecfg.n_codes)
+    p["vq"] = {"codebook": cb, "cluster_size": p["vq"]["cluster_size"],
+               "embed_avg": cb.clone()}
+    last = {}
+
+    def loss_fn(params, batch, rng):
+        total, m = DV.dvm_clip_embed_loss(params, batch["embeds"], ecfg)
+        last.update(z=m["z"].detach(), indices=m["indices"])
+        return total, {"loss_rec": m["loss_rec"],
+                       "loss_quant": m["loss_quant"]}
+
+    usage = lambda idx: idx.unique().numel() / ecfg.n_codes
+    with torch.no_grad():
+        usage_before = usage(DV.dvm_clip_embed_loss(p, embeds, ecfg)[1]
+                             ["indices"])
+    tx = masked_trainable(adamw(lambda step: 1e-4, b2=0.999), p,
+                          r"^(quant_encoder|encode_task|decode_task|"
+                          r"quant_decoder)/")
+    trainer = Trainer(loss_fn, p, tx)
+    step_ms, losses = [], []
+    for i in range(3):
+        timer.start()
+        m = trainer.step({"embeds": embeds})
+        trainer.state.params["vq"] = Q.norm_ema_update(
+            trainer.state.params["vq"], last["z"], last["indices"])
+        step_ms.append(timer.stop(sync=trainer.state.params["vq"]
+                                  ["codebook"]) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+        logger.update(**{f"embed_dvm_{k}": v for k, v in losses[-1].items()})
+        if not all(math.isfinite(v) for v in losses[-1].values()):
+            raise AssertionError(f"embed DVM step {i}: {losses[-1]}")
+    cb = trainer.state.params["vq"]["codebook"]
+    if not (cb.isfinite().all() and torch.allclose(
+            cb.norm(dim=-1), torch.ones_like(cb[:, 0]), atol=1e-4)):
+        raise AssertionError("embed DVM: the codebook left the unit sphere")
+    with torch.no_grad():
+        usage_after = usage(DV.dvm_clip_embed_loss(
+            trainer.state.params, embeds, ecfg)[1]["indices"])
+    logger.write_json_line(part="11d dvm_clip_embed_loss")
+    emit("eval", part="11d discrete vision model, dvm_clip_embed_loss",
+         what="ClipEmbedDVMConfig(encoder='transformer', quantizer="
+         "'norm_ema') on the 16 pooled CLIP-ViT-H embeddings; codebook from "
+         "kmeans_init_codebook over their z; 3 Trainer steps, "
+         "norm_ema_update after each", step_ms=step_ms, losses=losses,
+         code_usage_before=usage_before, code_usage_after=usage_after,
+         logged=str(logger), card=name)
+    del trainer, p, embeds
+    torch.cuda.empty_cache()
 
 
 def redesigned_smem_bytes() -> dict:
@@ -2048,7 +2481,17 @@ def main() -> None:
     # the de-tokenizer: no kernel of the six, and no path's count
     phase_unet_pass(name, unclip32, unclip16)
     phase_detokenize(name, llama_int8, tok_params, codes, unclip32, decoder)
-    del unclip32, unclip16, decoder
+    del unclip32, unclip16
+    torch.cuda.empty_cache()
+
+    # the eval path (11a, 11b), counted on its own
+    short_mha.launches = 0
+    int8_matmul.launches = 0
+    phase_fid(name, tok_params, raw, codes, decoder)
+    phase_vqa(name, llama_int8, tok_params, raw)
+    for kernel, n in read_and_check("eval", (short_mha, int8_matmul)).items():
+        launches[kernel] += n
+    del decoder
     del tok_params, codes, raw, llama_int8
     torch.cuda.empty_cache()
     # the training path: phase_train zeroes its kernels' counters itself
@@ -2058,16 +2501,27 @@ def main() -> None:
     # the two training entry points, each a path of its own (phases 9, 10)
     for kernel, n in phase_train_llm(name, synthetic_ms).items():
         launches[kernel] += n
+    from seed_tpu_torch.utils.metrics_logging import MetricLogger
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     short_mha.launches = 0
-    tok_launches, fp32_stage1 = phase_train_tokenizer(name, flush)
-    emit("launches", path="train_tokenizer", short_mha=tok_launches,
-         card=name)
-    if tok_launches == 0:
-        raise AssertionError("short_mha was never launched on the "
-                             "train_tokenizer path")
-    launches["short_mha"] += tok_launches
-    del flush
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        tok_launches, fp32_stage1, common = phase_train_tokenizer(
+            name, flush, tmp)
+        emit("launches", path="train_tokenizer", short_mha=tok_launches,
+             card=name)
+        if tok_launches == 0:
+            raise AssertionError("short_mha was never launched on the "
+                                 "train_tokenizer path")
+        launches["short_mha"] += tok_launches
+        del flush
+        # 11c and 11d log through one MetricLogger (JSON lines under build/)
+        logger = MetricLogger(log_file=str(scratch / "eval_log.jsonl"))
+        phase_captions(name, tmp, common, logger)
+    torch.cuda.empty_cache()
+    phase_dvm(name, logger)
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} was never launched on its main path")

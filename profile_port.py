@@ -2,7 +2,7 @@
 
     python3 profile_port.py
 
-Seeded random weights at full width, as in chip_smoke.py. Nine regions:
+Seeded random weights at full width, as in chip_smoke.py. Twelve regions:
 one SEED-tokenizer encode (exact config, B=8), the same encode through the
 W8A8 encoder (quantize_for_serving + serving_fast_config, as chip_smoke.py's
 server phase runs it), the de-tokenizer's unit of work (one SD2.1 UNet pass
@@ -14,7 +14,9 @@ chunk), and one optimizer step of SEED-LLaMA-8B + LoRA training (bf16,
 grad_accum 2 x micro-batch 4 x 1024 tokens, per-layer recompute, flash
 kernels), and one step of each training entry point fed from tar shards
 (train_llm at those shapes; train_tokenizer stage 1 at full width, batch
-16). For each region it prints one JSON line with the host wall time
+16), and the eval path's own work: Inception-v3 pool3 over 8 images (256 ->
+299) in fp32 and in bf16, and one Trainer step of the discrete vision model
+on the frozen CLIP-ViT-H tower (batch 16 at 224). For each region it prints one JSON line with the host wall time
 (median of 5 runs, 3 for the heavier regions, no profiler), the device
 busy time (sum of kernel times under torch.profiler),
 the device's idle share, and the kernels with the most device time.
@@ -172,6 +174,30 @@ def main() -> None:
     del base, trainer
     torch.cuda.empty_cache()
     entry_points(card)
+    torch.cuda.empty_cache()
+    eval_regions(card)
+
+
+def eval_regions(card: str) -> None:
+    """Inception pool3 at B=8 in fp32 (TF32 off) and bf16, as chip_smoke.py
+    phase 11a runs it on the real images, and one discrete vision model step
+    as 11d runs it."""
+    from seed_tpu_torch.eval import inception_pool3, init_inception
+    from seed_tpu_torch.models.layers import cast_tree
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 12)
+    inc = init_inception(gen, with_fc=True)
+    inc16 = cast_tree(inc, torch.bfloat16)
+    imgs = torch.rand((8, 256, 256, 3), generator=gen, device="cuda")
+    region("eval: Inception-v3 pool3 B=8 (256 -> 299), fp32",
+           lambda: inception_pool3(inc, imgs), card)
+    region("eval: Inception-v3 pool3 B=8 (256 -> 299), bf16",
+           lambda: inception_pool3(inc16, imgs, dtype=torch.bfloat16), card)
+    del inc, inc16
+    _, trainer = chip_smoke.dvm_trainer(gen)
+    batch = {"images": torch.randn((16, 224, 224, 3), generator=gen,
+                                   device="cuda").to(torch.bfloat16)}
+    region("eval: discrete vision model step, CLIP-ViT-H tower, batch 16",
+           lambda: trainer.step(batch), card, reps=3, top_n=12)
 
 
 def entry_points(card: str) -> None:

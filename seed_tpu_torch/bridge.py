@@ -22,7 +22,12 @@ they adapt.
 ``unclip_from_seed_tpu`` carries an unCLIP de-tokenizer tree
 (seed_tpu/models/unclip): its ``blocks`` and CLIP ``layers`` are Python
 lists in seed_tpu, not stacked trees, and stay lists; its conv kernels go
-from seed_tpu's HWIO to torch's OIHW (``convs_to_oihw``).
+from seed_tpu's HWIO to torch's OIHW (``convs_to_oihw``), as those of the
+Inception-v3 tree of FID and the Inception Score do.
+
+``dvm_from_seed_tpu`` carries a discrete vision model tree
+(seed_tpu/models/discrete_vision.py), whose quant encoder and decoder are
+stacked block trees under names of their own.
 """
 from __future__ import annotations
 
@@ -131,3 +136,21 @@ def convs_to_oihw(tree: Any) -> Any:
 def unclip_from_seed_tpu(tree: Any, device="cuda") -> Any:
     """seed_tpu unCLIP tree (numpy leaves) -> the port's, on ``device``."""
     return convs_to_oihw(from_seed_tpu(tree, device))
+
+
+DVM_STACKED_KEYS = ("quant_encoder", "quant_decoder")
+
+
+def dvm_from_seed_tpu(tree: Any, device="cuda") -> Any:
+    """seed_tpu discrete vision model tree (numpy leaves) -> the port's, on
+    ``device``. ``quant_encoder`` / ``quant_decoder`` of ``init_dvm`` are
+    stacked blocks and become lists of blocks; those of
+    ``init_clip_embed_dvm`` hold their blocks under ``blocks``, which
+    ``from_seed_tpu`` unstacks already."""
+    tree = dict(tree)
+    stacked = {k: tree.pop(k) for k in DVM_STACKED_KEYS
+               if k in tree and "attn" in tree[k]}
+    out = from_seed_tpu(tree, device)
+    for k, blocks in stacked.items():
+        out[k] = from_seed_tpu({"blocks": blocks}, device)["blocks"]
+    return out

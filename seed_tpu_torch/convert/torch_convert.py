@@ -25,12 +25,13 @@ The state dict may hold numpy arrays or tensors; the result is tensors on
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..eval.inception import BN_EPS, INCEPTION_CONVS
 from ..utils.tree import tree_map
 
 
@@ -261,78 +262,10 @@ def convert_lora(sd, alpha: float = 32.0, r: Optional[float] = None,
 
 # ------------------------ 4. torchvision inception_v3 ----------------------
 
-BN_EPS = 1e-3  # torchvision BasicConv2d BatchNorm2d(eps=0.001)
-
-# name -> (c_in, c_out, (kh, kw), (sh, sw), (ph, pw)): torchvision's
-# inception_v3 layer table, flattened with dotted module paths (the table of
-# seed_tpu/eval/inception.py)
-_A = lambda pre, cin, pool: {
-    f"{pre}.branch1x1": (cin, 64, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch5x5_1": (cin, 48, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch5x5_2": (48, 64, (5, 5), (1, 1), (2, 2)),
-    f"{pre}.branch3x3dbl_1": (cin, 64, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch3x3dbl_2": (64, 96, (3, 3), (1, 1), (1, 1)),
-    f"{pre}.branch3x3dbl_3": (96, 96, (3, 3), (1, 1), (1, 1)),
-    f"{pre}.branch_pool": (cin, pool, (1, 1), (1, 1), (0, 0)),
-}
-_B = lambda pre, cin: {
-    f"{pre}.branch3x3": (cin, 384, (3, 3), (2, 2), (0, 0)),
-    f"{pre}.branch3x3dbl_1": (cin, 64, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch3x3dbl_2": (64, 96, (3, 3), (1, 1), (1, 1)),
-    f"{pre}.branch3x3dbl_3": (96, 96, (3, 3), (2, 2), (0, 0)),
-}
-_C = lambda pre, c7: {
-    f"{pre}.branch1x1": (768, 192, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch7x7_1": (768, c7, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch7x7_2": (c7, c7, (1, 7), (1, 1), (0, 3)),
-    f"{pre}.branch7x7_3": (c7, 192, (7, 1), (1, 1), (3, 0)),
-    f"{pre}.branch7x7dbl_1": (768, c7, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch7x7dbl_2": (c7, c7, (7, 1), (1, 1), (3, 0)),
-    f"{pre}.branch7x7dbl_3": (c7, c7, (1, 7), (1, 1), (0, 3)),
-    f"{pre}.branch7x7dbl_4": (c7, c7, (7, 1), (1, 1), (3, 0)),
-    f"{pre}.branch7x7dbl_5": (c7, 192, (1, 7), (1, 1), (0, 3)),
-    f"{pre}.branch_pool": (768, 192, (1, 1), (1, 1), (0, 0)),
-}
-_D = lambda pre: {
-    f"{pre}.branch3x3_1": (768, 192, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch3x3_2": (192, 320, (3, 3), (2, 2), (0, 0)),
-    f"{pre}.branch7x7x3_1": (768, 192, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch7x7x3_2": (192, 192, (1, 7), (1, 1), (0, 3)),
-    f"{pre}.branch7x7x3_3": (192, 192, (7, 1), (1, 1), (3, 0)),
-    f"{pre}.branch7x7x3_4": (192, 192, (3, 3), (2, 2), (0, 0)),
-}
-_E = lambda pre, cin: {
-    f"{pre}.branch1x1": (cin, 320, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch3x3_1": (cin, 384, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch3x3_2a": (384, 384, (1, 3), (1, 1), (0, 1)),
-    f"{pre}.branch3x3_2b": (384, 384, (3, 1), (1, 1), (1, 0)),
-    f"{pre}.branch3x3dbl_1": (cin, 448, (1, 1), (1, 1), (0, 0)),
-    f"{pre}.branch3x3dbl_2": (448, 384, (3, 3), (1, 1), (1, 1)),
-    f"{pre}.branch3x3dbl_3a": (384, 384, (1, 3), (1, 1), (0, 1)),
-    f"{pre}.branch3x3dbl_3b": (384, 384, (3, 1), (1, 1), (1, 0)),
-    f"{pre}.branch_pool": (cin, 192, (1, 1), (1, 1), (0, 0)),
-}
-
-INCEPTION_CONVS: Dict[str, Tuple] = {
-    "Conv2d_1a_3x3": (3, 32, (3, 3), (2, 2), (0, 0)),
-    "Conv2d_2a_3x3": (32, 32, (3, 3), (1, 1), (0, 0)),
-    "Conv2d_2b_3x3": (32, 64, (3, 3), (1, 1), (1, 1)),
-    "Conv2d_3b_1x1": (64, 80, (1, 1), (1, 1), (0, 0)),
-    "Conv2d_4a_3x3": (80, 192, (3, 3), (1, 1), (0, 0)),
-    **_A("Mixed_5b", 192, 32), **_A("Mixed_5c", 256, 64),
-    **_A("Mixed_5d", 288, 64),
-    **_B("Mixed_6a", 288),
-    **_C("Mixed_6b", 128), **_C("Mixed_6c", 160), **_C("Mixed_6d", 160),
-    **_C("Mixed_6e", 192),
-    **_D("Mixed_7a"),
-    **_E("Mixed_7b", 1280), **_E("Mixed_7c", 2048),
-}
-
-
 def convert_inception_torch(sd, dtype=torch.float32,
                             device="cuda") -> Dict[str, Any]:
     """torchvision ``inception_v3`` state dict -> the inception tree of the
-    FID pool3 feature extractor.
+    FID pool3 feature extractor (``eval.inception``).
 
     Each BasicConv2d's eval-mode BatchNorm (eps=1e-3) is folded, in float64,
     into a per-channel (scale, bias):

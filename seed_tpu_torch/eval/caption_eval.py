@@ -1,12 +1,24 @@
-"""Generation-based caption evaluation (counterpart of
+"""Generation-based evaluation loops (counterpart of
 seed_tpu/eval/caption_eval.py, CustomTrainer.evaluate in the reference):
 generate over an eval stream, gather the results across processes, dedupe
-by image_id, score with the caption metrics."""
+by image_id, score with the caption metrics; and the code -> image ->
+features harness of FID (eval_caption_to_images.py)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
+import numpy as np
+import torch
+
 from .metrics import caption_metrics
+
+
+def _to_host(x) -> np.ndarray:
+    """A tensor (on any device) or array -> numpy; bf16 comes back fp32."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+    return np.asarray(x)
 
 
 def gather_results(local: List[Dict]) -> List[Dict]:
@@ -49,3 +61,21 @@ def evaluate_captions(
             local.append({"image_id": int(img_id),
                           "caption": decode_fn(out_ids)})
     return caption_metrics(dedupe_by_key(gather_results(local)), annotations)
+
+
+def generate_images_for_fid(
+    decode_image_fn: Callable[[np.ndarray], Any],
+    codes_stream: Iterable[Any],
+    feature_fn: Callable[[Any], Any],
+    max_batches: Optional[int] = None,
+) -> np.ndarray:
+    """Decode batches of codes to pixels and take their features for FID.
+    The seed and guidance live inside ``decode_image_fn``; codes reach it
+    as numpy, and the features come back to the host as numpy [N, D]."""
+    feats = []
+    for i, codes in enumerate(codes_stream):
+        if max_batches is not None and i >= max_batches:
+            break
+        images = decode_image_fn(_to_host(codes))
+        feats.append(_to_host(feature_fn(images)))
+    return np.concatenate(feats, axis=0) if feats else np.zeros((0, 1))

@@ -1,15 +1,77 @@
-"""Caption metrics (counterpart of the caption half of
-seed_tpu/eval/metrics.py): self-contained corpus BLEU-1..4 and CIDEr-D for
-the caption eval loop, without pycocoevalcap. Plain Python and numpy.
-FID and the Inception Score come with the rest of ``eval/``."""
+"""Evaluation metrics (counterpart of seed_tpu/eval/metrics.py): FID, the
+Inception Score, VQA accuracy, and self-contained corpus BLEU-1..4 and
+CIDEr-D for the caption eval loop, without scipy or pycocoevalcap. Plain
+Python and numpy: features and probabilities come to the host first.
+
+- ``frechet_distance``: the Gaussian W2 distance of FID (Dowson-Landau),
+  with the reference's guards (eps on singular covariances);
+- feature extraction is pluggable: any (images -> [N, D]) callable, such as
+  ``eval.inception.inception_pool3``;
+- ``inception_score`` from class probabilities.
+"""
 from __future__ import annotations
 
 import math
 from collections import Counter, defaultdict
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+
+# ------------------------------- FID ----------------------------------------
+
+def gaussian_stats(features: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    mu = features.mean(axis=0)
+    sigma = np.cov(features, rowvar=False)
+    return mu, sigma
+
+
+def _sqrtm_psd(mat: np.ndarray, eps: float = 1e-6) -> np.ndarray:
+    """Matrix square root through the symmetric eigendecomposition."""
+    sym = (mat + mat.T) / 2
+    vals, vecs = np.linalg.eigh(sym)
+    vals = np.clip(vals, 0.0, None)
+    return (vecs * np.sqrt(vals)) @ vecs.T
+
+
+def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
+    """||mu1-mu2||^2 + Tr(s1 + s2 - 2 sqrt(s1 s2)) (fid_score.py math)."""
+    mu1, mu2 = np.atleast_1d(mu1), np.atleast_1d(mu2)
+    sigma1, sigma2 = np.atleast_2d(sigma1), np.atleast_2d(sigma2)
+    diff = mu1 - mu2
+    # sqrt(s1 s2) = sqrt(sqrt(s1) s2 sqrt(s1)), which keeps it symmetric
+    s1_half = _sqrtm_psd(sigma1)
+    inner = s1_half @ sigma2 @ s1_half
+    if not np.isfinite(inner).all():     # near-singular: the reference's eps
+        offset = np.eye(sigma1.shape[0]) * eps
+        s1_half = _sqrtm_psd(sigma1 + offset)
+        inner = s1_half @ (sigma2 + offset) @ s1_half
+    covmean = _sqrtm_psd(inner)
+    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
+                 - 2.0 * np.trace(covmean))
+
+
+def fid(real_features: np.ndarray, fake_features: np.ndarray) -> float:
+    m1, s1 = gaussian_stats(real_features)
+    m2, s2 = gaussian_stats(fake_features)
+    return frechet_distance(m1, s1, m2, s2)
+
+
+def inception_score(probs: np.ndarray, splits: int = 10) -> Tuple[float, float]:
+    """probs [N, C] class probabilities -> (mean, std) of exp(KL)."""
+    n = probs.shape[0]
+    scores = []
+    for i in range(splits):
+        part = probs[i * n // splits:(i + 1) * n // splits]
+        if len(part) == 0:
+            continue
+        py = part.mean(axis=0, keepdims=True)
+        kl = part * (np.log(part + 1e-12) - np.log(py + 1e-12))
+        scores.append(np.exp(kl.sum(axis=1).mean()))
+    return float(np.mean(scores)), float(np.std(scores))
+
+
+# --------------------------- caption metrics --------------------------------
 
 def _ngrams(tokens: Sequence[str], n: int) -> Counter:
     return Counter(tuple(tokens[i:i + n]) for i in range(len(tokens) - n + 1))
@@ -86,6 +148,25 @@ def cider_d(candidates: List[str], references: List[List[str]],
             score += sim_sum / max(1, len(refs))
         scores.append(10.0 * score / max_n)
     return float(np.mean(scores)) if scores else 0.0
+
+
+def vqa_accuracy(results: List[Dict], annotations: Dict[Any, List[str]]
+                 ) -> Dict[str, float]:
+    """VQA-style accuracy (eval/eval_vqa.py): min(matches / 3, 1) over the
+    annotators' answers, with a light normalization of the strings."""
+    def norm(s):
+        return " ".join(str(s).lower().strip().strip(".").split())
+
+    accs = []
+    for r in results:
+        gts = annotations.get(r.get("question_id", r.get("image_id")))
+        if gts is None:
+            continue
+        pred = norm(r["answer"])
+        matches = sum(1 for g in gts if norm(g) == pred)
+        accs.append(min(matches / 3.0, 1.0))
+    return {"vqa_accuracy": float(np.mean(accs)) if accs else 0.0,
+            "num_evaluated": float(len(accs))}
 
 
 def caption_metrics(results: List[Dict], annotations: Dict[int, List[str]]

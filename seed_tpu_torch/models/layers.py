@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from ..ops.int8_matmul import (can_use_kernel, int8_matmul, int_dot,
                                w8a8_epilogue, w8a8_kernel_takes, w8a8_matmul)
 from ..ops.quantization import quantize_acts
+from ..utils.tree import leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -139,3 +140,14 @@ def init_embed(gen: torch.Generator, n: int, dim: int, dtype=torch.float32,
 def normal(gen: torch.Generator, shape, std: float, dtype=torch.float32,
            device="cuda") -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+def cast_tree(tree, dtype):
+    """Every floating leaf of a param tree in ``dtype`` (bf16 serving, fp32
+    training); integer leaves (int8 codes) stay as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def count_params(tree) -> int:
+    return sum(x.numel() for x in leaves(tree))

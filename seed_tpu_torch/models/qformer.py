@@ -7,8 +7,10 @@ training) the tree also holds the BERT word and position embeddings and a
 text FFN per layer, for three more forwards: the joint query + text pass of
 ITM (``qformer_apply(text_ids=...)``), the text encoder
 (``qformer_text_apply``) and the decoder-mode caption pass
-(``qformer_caption_apply``) with its tied LM head. The caption generators
-are not ported yet (ROADMAP.md).
+(``qformer_caption_apply``) with its tied LM head, and greedy caption
+generation through it: recomputing the joint forward at every position
+(``qformer_generate_caption``) or over a bank of the queries' keys and
+values (``qformer_generate_caption_cached``).
 """
 from __future__ import annotations
 
@@ -217,6 +219,118 @@ def qformer_caption_apply(params, image_embeds: torch.Tensor,
     if text_pad is not None:
         mask = _key_pad(mask, Q, text_pad)
     return _layers_apply(params, x, image_embeds, cfg, mask, T)[:, Q:]
+
+
+@torch.no_grad()
+def qformer_generate_caption(params, lm_head, image_embeds: torch.Tensor,
+                             cfg: QFormerConfig, bos_id: int, eos_id: int,
+                             max_len: int = 24) -> torch.Tensor:
+    """Greedy caption generation through the decoder-mode Q-Former
+    (BertLMHeadModel.generate, qformer_causual.py:933-1062), recomputing the
+    joint forward at each position with the text after it masked as padding.
+    Once a row emits eos it keeps emitting eos. Returns int32 [B, max_len]
+    (bos, then the generated ids)."""
+    B = image_embeds.shape[0]
+    dev = image_embeds.device
+    tokens = torch.full((B, max_len), eos_id, dtype=torch.int32, device=dev)
+    tokens[:, 0] = bos_id
+    pos = torch.arange(max_len, device=dev)[None]
+    word = params["embeddings"]["word_embeddings"]
+    for i in range(max_len - 1):
+        pad = (pos <= i).to(torch.int32).expand(B, max_len)
+        hidden = qformer_caption_apply(params, image_embeds, tokens, cfg,
+                                       text_pad=pad)
+        logits = lm_head_apply(lm_head, word, hidden[:, i], cfg)
+        nxt = logits.argmax(-1).to(torch.int32)
+        tokens[:, i + 1] = torch.where(tokens[:, i] == eos_id, eos_id, nxt)
+    return tokens
+
+
+@torch.no_grad()
+def qformer_caption_prefix(params, image_embeds: torch.Tensor,
+                           cfg: QFormerConfig, max_text: int):
+    """KV-cached caption generation, phase 1: the visual prefix.
+
+    Under the caption mask (``seed_caption_mask``) the queries never attend
+    to the text, so their hidden states, and each layer's self-attention
+    K/V of them, do not depend on the generated text. The query block runs
+    once (the first Q rows of ``qformer_caption_apply``) and each layer's
+    K/V is banked (BertLMHeadModel.generate's past_key_values).
+
+    Returns a list per layer of {"k", "v"} [B, Q + max_text, H, hd] with
+    rows [:Q] filled; ``qformer_caption_step`` writes the text rows."""
+    B = image_embeds.shape[0]
+    Q, H, hd = cfg.query_len, cfg.heads, cfg.head_dim
+    x = params["query_tokens"].to(image_embeds.dtype).expand(B, Q, cfg.hidden)
+    x = L.layer_norm(params["embeddings"]["norm"], x, cfg.ln_eps)
+    qmask = seed_causal_mask(Q, device=image_embeds.device)
+    cache = []
+    for layer in params["layers"]:
+        p = layer["self"]
+        k = L.linear(p["k"], x).reshape(B, Q, H, hd)
+        v = L.linear(p["v"], x).reshape(B, Q, H, hd)
+        bank = {n: x.new_zeros((B, Q + max_text, H, hd)) for n in ("k", "v")}
+        bank["k"][:, :Q] = k
+        bank["v"][:, :Q] = v
+        cache.append(bank)
+        q = L.linear(p["q"], x).reshape(B, Q, H, hd)
+        o = mha(q, k, v, mask=qmask).reshape(B, Q, cfg.hidden)
+        x = L.layer_norm(p["norm"], x + L.linear(p["out"], o), cfg.ln_eps)
+        if "cross" in layer:
+            x = _attn_apply(layer["cross"], x, image_embeds, cfg)
+        x = _ffn_apply(layer["ffn_q"], x, cfg)
+    return cache
+
+
+@torch.no_grad()
+def qformer_caption_step(params, cache, tok: torch.Tensor, i: int,
+                         cfg: QFormerConfig):
+    """KV-cached caption decode, phase 2: one text token ``tok`` [B] at text
+    position ``i``. Writes its K/V into row Q + i of the bank (in place) and
+    returns (hidden [B, hidden], cache). Text rows have no cross-attention
+    and take the text FFN (rows [Q:] of ``qformer_caption_apply``)."""
+    B = tok.shape[0]
+    Q, H, hd = cfg.query_len, cfg.heads, cfg.head_dim
+    S = cache[0]["k"].shape[1]
+    emb = params["embeddings"]
+    x = (L.embed(emb["word_embeddings"], tok[:, None])
+         + emb["position_embeddings"]["embedding"][i][None, None])
+    x = L.layer_norm(emb["norm"], x, cfg.ln_eps)                # [B, 1, hidden]
+    # visible: every query and the text rows up to i
+    visible = (torch.arange(S, device=tok.device) < Q + i + 1)[None, None, None]
+    for layer, bank in zip(params["layers"], cache):
+        p = layer["self"]
+        bank["k"][:, Q + i] = L.linear(p["k"], x).reshape(B, H, hd)
+        bank["v"][:, Q + i] = L.linear(p["v"], x).reshape(B, H, hd)
+        q = L.linear(p["q"], x).reshape(B, 1, H, hd)
+        o = mha(q, bank["k"], bank["v"], mask=visible).reshape(B, 1, cfg.hidden)
+        x = L.layer_norm(p["norm"], x + L.linear(p["out"], o), cfg.ln_eps)
+        x = _ffn_apply(layer["ffn_t"], x, cfg)
+    return x[:, 0], cache
+
+
+@torch.no_grad()
+def qformer_generate_caption_cached(params, lm_head,
+                                    image_embeds: torch.Tensor,
+                                    cfg: QFormerConfig, bos_id: int,
+                                    eos_id: int, max_len: int = 24
+                                    ) -> torch.Tensor:
+    """Greedy caption generation over the banked prefix: the tokens of
+    ``qformer_generate_caption`` (the same greedy math) at one position per
+    step instead of Q + T. Returns int32 [B, max_len]."""
+    B = image_embeds.shape[0]
+    cache = qformer_caption_prefix(params, image_embeds, cfg, max_len)
+    word = params["embeddings"]["word_embeddings"]
+    tokens = torch.full((B, max_len), eos_id, dtype=torch.int32,
+                        device=image_embeds.device)
+    tokens[:, 0] = bos_id
+    for i in range(max_len - 1):
+        hidden, cache = qformer_caption_step(params, cache, tokens[:, i], i,
+                                             cfg)
+        nxt = lm_head_apply(lm_head, word, hidden, cfg).argmax(-1)
+        tokens[:, i + 1] = torch.where(tokens[:, i] == eos_id, eos_id,
+                                       nxt.to(torch.int32))
+    return tokens
 
 
 def qformer_text_apply(params, text_ids: torch.Tensor, cfg: QFormerConfig,

@@ -9,7 +9,7 @@ torchvision-on-PIL preprocessing); ``resize_bicubic`` is the continuous
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,6 +134,70 @@ def preprocess(images_u8: torch.Tensor, image_size: int = 224,
     else:
         x = images_u8.float() / 255.0
     return normalize(x, dtype)
+
+
+def _scale_translate_weights(in_size: int, out_size: int, scale: torch.Tensor,
+                            translation: torch.Tensor) -> torch.Tensor:
+    """Per example, the [out, in] bilinear weights of
+    ``jax.image.scale_and_translate(..., method="bilinear")`` (antialias on):
+    output pixel i samples the input at (i + 0.5 - translation) / scale -
+    0.5 with a triangle kernel widened by 1 / scale when it downscales; each
+    row of weights is normalised, and a sample outside the input gets none.
+    scale, translation [B] fp32 -> [B, out, in] fp32."""
+    dev = scale.device
+    inv = (1.0 / scale.float())[:, None]                            # [B, 1]
+    kernel_scale = inv.clamp_min(1.0)
+    sample = ((torch.arange(out_size, device=dev, dtype=torch.float32) + 0.5)
+              * inv - translation.float()[:, None] * inv - 0.5)    # [B, out]
+    src = torch.arange(in_size, device=dev, dtype=torch.float32)
+    x = (sample[:, :, None] - src).abs() / kernel_scale[:, :, None]
+    w = (1.0 - x).clamp_min(0.0)                                   # [B, out, in]
+    total = w.sum(-1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, :, None], w, torch.zeros_like(w))
+
+
+def random_resized_crop_flip(
+    images: torch.Tensor,           # float [B, H, W, 3] in [0, 1]
+    image_size: int = 224,
+    scale: Tuple[float, float] = (0.5, 1.0),
+    flip: bool = True,
+    dtype=torch.float32,
+    gen: Optional[torch.Generator] = None,
+    draws: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Training augmentation (blip2_image_train, blip_processors.py:226+):
+    per example a random-area square crop, resized to ``image_size`` by
+    scale-and-translate (bilinear, antialiased), a horizontal flip, then the
+    CLIP normalization; batched on the device.
+
+    The draws are ``draws`` = (area [B] in ``scale``, the crop's offsets as
+    fractions u_h, u_w [B] in [0, 1) of the room left, flips [B] bool) when
+    given, else drawn from ``gen``."""
+    B, H, W, _ = images.shape
+    dev = images.device
+    if draws is None:
+        area = scale[0] + (scale[1] - scale[0]) * torch.rand(
+            B, generator=gen, device=dev)
+        u_h = torch.rand(B, generator=gen, device=dev)
+        u_w = torch.rand(B, generator=gen, device=dev)
+        flips = torch.rand(B, generator=gen, device=dev) < 0.5
+    else:
+        area, u_h, u_w, flips = (torch.as_tensor(d, device=dev) for d in draws)
+    side = area.float().sqrt()                  # aspect kept at 1
+    off_h = u_h.float() * ((1.0 - side) * H)
+    off_w = u_w.float() * ((1.0 - side) * W)
+    sc = image_size / (side * H)
+    kv = _scale_translate_weights(H, image_size, sc, -off_h * sc)
+    kh = _scale_translate_weights(W, image_size, sc, -off_w * sc)
+    out = torch.einsum("bhwc,boh->bowc", images.float(), kv)
+    out = torch.einsum("bhwc,bow->bhoc", out, kh)
+    if flip:
+        out = torch.where(flips.bool()[:, None, None, None], out.flip(2), out)
+    return normalize(out.clamp(0.0, 1.0), dtype)
 
 
 def center_crop_resize(images_u8: torch.Tensor, image_size: int = 224,

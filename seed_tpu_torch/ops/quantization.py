@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-from ..utils.tree import path_str
+from ..utils.tree import leaves, path_str
 
 DEFAULT_TARGETS = (r"(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|"
                    r"down_proj|lm_head)/kernel$")
@@ -63,3 +63,8 @@ def quantize_tree(params: Any, targets: str = DEFAULT_TARGETS) -> Any:
         return tree
 
     return walk(params, [])
+
+
+def quantized_bytes(params: Any) -> int:
+    """Bytes of every leaf of ``params`` (int8 codes count one each)."""
+    return sum(x.numel() * x.element_size() for x in leaves(params))

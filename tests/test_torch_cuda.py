@@ -20,6 +20,7 @@ from seed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_plain,
                                             w8a8_matmul, w8a8_matmul_plain)
 from seed_tpu_torch.ops.quantization import quantize_acts, quantize_weight
 from seed_tpu_torch.serving.offload import OffloadedParams
+from seed_tpu_torch.utils.tree import leaves as _leaves
 from seed_tpu_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
@@ -558,3 +559,84 @@ def test_short_mha_fp32_at_the_stage1_shape(gen):
     assert short_mha.launches == before + 1
     want = short_mha_plain(q, k, v, D ** -0.5, False)
     assert (got - want).abs().max().item() <= 2e-5
+
+
+# ------------------------- eval and the discrete vision model ----------------
+
+def test_inception_fp32_card_vs_cpu(gen, no_tf32):
+    """Inception-v3 pool3 and logits at 299 (the FID / IS network, cuDNN
+    convolutions) on the card against the same call on the CPU, fp32 with
+    TF32 off: 1e-3 of the largest |feature|."""
+    from seed_tpu_torch.eval import inception as TI
+    p = TI.init_inception(gen, with_fc=True)
+    imgs = torch.rand((2, 256, 256, 3), generator=gen, device="cuda")
+    pc = _to(p, "cpu")
+    for fn, x in ((TI.inception_pool3, imgs), (TI.inception_logits,
+                                               imgs * 2 - 1)):
+        got = fn(p, x)
+        want = fn(pc, x.cpu())
+        assert got.isfinite().all()
+        assert ((got.cpu() - want).abs().max()
+                / want.abs().max()).item() <= 1e-3, fn.__name__
+    for k in p:
+        if p[k]["kernel"].dim() == 4:
+            assert p[k]["kernel"].is_contiguous(
+                memory_format=torch.channels_last), k
+
+
+def test_dvm_step_on_the_card(gen):
+    """One Trainer step of the discrete vision model on the card: a frozen
+    tower (bf16) and head, fp32 trainable parts; the loss finite, the tower
+    and head bit-identical after the step, every trainable leaf moved."""
+    import dataclasses
+    from seed_tpu_torch.models import discrete_vision as TDV
+    from seed_tpu_torch.models import vit as TV
+    from seed_tpu_torch.train import optim as TO
+    from seed_tpu_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(TDV.TINY_DVM, hidden=128, proj_dim=64, heads=4,
+                              mlp_dim=256, n_codes=512)
+    tcfg = TV.ViTConfig(image_size=56, patch_size=14, dim=128, depth=2,
+                        heads=4, mlp_dim=256, qkv_bias="full", ln_eps=1e-5,
+                        ln_pre=True, patch_bias=False)
+    params = {"dvm": TDV.init_dvm(gen, cfg),
+              "tower": L.cast_tree(TV.init_vit(gen, tcfg), torch.bfloat16),
+              "head": L.cast_tree(TV.init_clip_vision_projection(
+                  gen, tcfg, cfg.proj_dim), torch.bfloat16)}
+    frozen = {k: [t.clone() for t in _leaves(params[k])]
+              for k in ("tower", "head")}
+    tx = TO.masked_trainable(TO.adamw(lambda step: 1e-3), params, r"^dvm/")
+
+    def loss_fn(p, batch, rng):
+        total, m = TDV.dvm_loss(p["dvm"], p["tower"], p["head"],
+                                batch["images"], cfg, tcfg)
+        return total, {k: m[k] for k in ("loss_rec", "loss_quant",
+                                         "loss_iti")}
+
+    trainer = Trainer(loss_fn, params, tx)
+    before = [t.clone() for t in _leaves(trainer.state.params["dvm"])]
+    imgs = torch.randn((4, 56, 56, 3), generator=gen, device="cuda")
+    m = trainer.step({"images": imgs.to(torch.bfloat16)})
+    assert all(torch.isfinite(v).all() for v in m.values())
+    for k in ("tower", "head"):
+        assert all(torch.equal(a, b) for a, b in zip(
+            frozen[k], _leaves(trainer.state.params[k]))), k
+    moved = [not torch.equal(a, b) for a, b in zip(
+        before, _leaves(trainer.state.params["dvm"]))]
+    assert sum(moved) >= len(moved) - 1    # the codebook rows no id picked
+
+
+def test_caption_generators_card_cached_vs_recompute(gen):
+    """The Q-Former caption generators at full width (12 layers, BERT
+    vocabulary, 32 queries) on the card: cached and recompute give the same
+    tokens, fp32."""
+    import dataclasses
+    from seed_tpu_torch.models import qformer as TQ
+    cfg = dataclasses.replace(TQ.SEED_QFORMER, with_text=True)
+    p = TQ.init_qformer(gen, cfg)
+    head = TQ.init_lm_head(gen, cfg)
+    feats = torch.randn((4, 257, cfg.encoder_width), generator=gen,
+                        device="cuda")
+    a = TQ.qformer_generate_caption(p, head, feats, cfg, 101, 102, 12)
+    b = TQ.qformer_generate_caption_cached(p, head, feats, cfg, 101, 102, 12)
+    assert a.shape == (4, 12) and (a[:, 0] == 101).all()
+    assert torch.equal(a, b)

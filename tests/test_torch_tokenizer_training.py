@@ -134,6 +134,62 @@ def test_qformer_caption_apply_and_lm_head(qformer):
                            JQCFG))
 
 
+CAPTION_LEN = 8
+
+
+def caption_eos(qformer):
+    """An eos id that row 0 emits at its third step, so that the
+    generators' eos-stickiness is exercised."""
+    _, _, tp, thead, feats, _, _ = qformer
+    toks = TQ.qformer_generate_caption(tp, thead, t(feats), TQCFG, bos_id=1,
+                                       eos_id=0, max_len=CAPTION_LEN)
+    return int(toks[0, 3])
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["recompute", "cached"])
+def test_caption_generators_match_seed_tpu(qformer, cached):
+    jp, jhead, tp, thead, feats, _, _ = qformer
+    eos = caption_eos(qformer)
+    jgen = (JQ.qformer_generate_caption_cached if cached
+            else JQ.qformer_generate_caption)
+    tgen = (TQ.qformer_generate_caption_cached if cached
+            else TQ.qformer_generate_caption)
+    want = jax.jit(jgen, static_argnums=(3, 4, 5, 6))(
+        jp, jhead, jnp.asarray(feats), JQCFG, 1, eos, CAPTION_LEN)
+    got = tgen(tp, thead, t(feats), TQCFG, bos_id=1, eos_id=eos,
+               max_len=CAPTION_LEN)
+    assert got.dtype == torch.int32 and got.shape == (3, CAPTION_LEN)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    row = got[0].tolist()
+    assert row[0] == 1 and row[3:] == [eos] * (CAPTION_LEN - 3)
+
+
+def test_cached_caption_generator_equals_recompute(qformer):
+    _, _, tp, thead, feats, _, _ = qformer
+    for eos in (0, caption_eos(qformer)):
+        a = TQ.qformer_generate_caption(tp, thead, t(feats), TQCFG, 1, eos,
+                                        CAPTION_LEN)
+        b = TQ.qformer_generate_caption_cached(tp, thead, t(feats), TQCFG, 1,
+                                               eos, CAPTION_LEN)
+        assert torch.equal(a, b)
+
+
+def test_caption_step_hidden_equals_joint_forward(qformer):
+    """Each cached step's hidden is the text row of the joint caption pass
+    (the queries never see the text, and the text sees only its past)."""
+    jp, _, tp, _, feats, ids, _ = qformer
+    T = ids.shape[1]
+    full = TQ.qformer_caption_apply(tp, t(feats), t(ids), TQCFG)
+    cache = TQ.qformer_caption_prefix(tp, t(feats), TQCFG, T)
+    jcache = JQ.qformer_caption_prefix(jp, jnp.asarray(feats), JQCFG, T)
+    for layer, jlayer in zip(cache, jcache):
+        close(layer["k"], jlayer["k"])
+    for i in range(T):
+        hidden, cache = TQ.qformer_caption_step(tp, cache, t(ids[:, i]), i,
+                                                TQCFG)
+        close(hidden, full[:, i].detach(), msg=f"text position {i}")
+
+
 # ------------------------------------------------------------------- VQ
 
 def test_quantize_straight_through():
