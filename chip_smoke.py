@@ -45,9 +45,9 @@ Phases, each printing lines of its own:
              -> PNG; the same decode in fp32 against bf16.
 9. train_llm — python3 -m seed_tpu_torch.train.train_llm on pkl tar shards
              written under build/: SEED-LLaMA-8B + LoRA through the flash
-             kernels (--batch-size 8 --grad-accum 2 --max-length 1024), 3
-             steps with saves at 2 and 3, then a fresh main(--resume) for
-             step 4 and one caption eval round on the merged weights.
+             kernels (--batch-size 8 --grad-accum 2 --max-length 1024), 4
+             steps with saves at 2 and 4, then a fresh main(--resume) for
+             step 5 and one caption eval round on the merged weights.
 10. train_tokenizer — python3 -m seed_tpu_torch.train.train_tokenizer on a
              JPEG + caption tar: stage 1 at full width (frozen fp32
              EVA-ViT-g through the fp32 short_mha kernel, Q-Former with its
@@ -67,10 +67,25 @@ Phases, each printing lines of its own:
              tower (3 timed Trainer steps, a fourth under profile_trace), then its
              CLIP-embed variant with a k-means-initialised norm-EMA codebook.
              11c and 11d log through MetricLogger and time with StepTimer.
+12. parallel — 12a: a one-rank NCCL process group (FileStore under build/)
+             and make_mesh(1, 1, 1, 1): train_llm --tp 1 on phase 9's shards
+             and seed goes through the mesh Trainer (DTensor state laid out
+             by LLAMA_TP_RULES), 4 steps through the flash kernels, the first
+             loss against phase 9's, the save at step 4 restored bit for bit
+             into a Trainer without a mesh, the median ms of steps 2-4 beside
+             phase 9's; ring attention and pipeline_forward at the 8B layer's
+             shapes against mha and the unpipelined layers. 12b: python3 -m
+             seed_tpu_torch.data.extract_image_ids (SEED_TOKENIZER bf16,
+             --batch-size 16) on 160 JPEGs made as phase 10's through the
+             loader native.available() chose: img/s over all and over the
+             batches after the first, its ids against the same encode in
+             process, the shards read back into a caption example. Only one
+             card: NCCL does not put two ranks on one GPU, so the multi-rank
+             semantics are held on the CPU (tests/test_torch_parallel*.py).
 
 Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
-phase 9 (train_llm), phase 10 (train_tokenizer) and phases 11a-11b (eval)
-are the main paths: the launch counters of a path's kernels are set to 0
+phase 9 (train_llm), phase 10 (train_tokenizer), phases 11a-11b (eval) and
+phase 12a (parallel) are the main paths: the launch counters of a path's kernels are set to 0
 just before it and read just after. Phase 8 launches none of the six kernels
 (its lines show the counts) and is counted on no path; nor are 11c and 11d
 (11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
@@ -1758,11 +1773,12 @@ def _host_share(record: dict, seconds: list) -> dict:
                                   if len(seconds) > 1 else None)}
 
 
-def phase_train_llm(name: str, synthetic_ms: float) -> dict:
-    """``train_llm`` on tar shards: 3 steps with a save at 2 and 3, then a
-    fresh ``main(--resume)`` that restores step 3, trains step 4 and runs one
+def phase_train_llm(name: str, synthetic_ms: float):
+    """``train_llm`` on tar shards: 4 steps with a save at 2 and 4, then a
+    fresh ``main(--resume)`` that restores step 4, trains step 5 and runs one
     caption eval round on the merged weights. Returns the flash kernels'
-    launches over both runs."""
+    launches over both runs, and the first run's losses and step times
+    (phase 12 repeats its first steps under a mesh)."""
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.train import train_llm
     from seed_tpu_torch.utils.tree import leaves_with_path
@@ -1775,7 +1791,7 @@ def phase_train_llm(name: str, synthetic_ms: float) -> dict:
         tmp = Path(tmp)
         common = ["--data", write_llm_shards(tmp), *LLM_ARGS,
                   "--output", str(tmp / "out")]
-        args = train_llm.parse_args(common + ["--steps", "3"])
+        args = train_llm.parse_args(common + ["--steps", "4"])
         t0 = time.perf_counter()
         setup = train_llm.build(args)
         torch.cuda.synchronize()
@@ -1786,25 +1802,26 @@ def phase_train_llm(name: str, synthetic_ms: float) -> dict:
         torch.cuda.reset_peak_memory_stats()
         rec = train_llm.run(args, setup)
         got = [fn.launches for fn in counters]
-        if got != [3 * n for n in per_step]:
+        if got != [4 * n for n in per_step]:
             raise AssertionError(f"train_llm: launches {got}, expected "
-                                 f"{per_step} per step for 3 steps")
+                                 f"{per_step} per step for 4 steps")
         if _fingerprint(setup.base) != before:
             raise AssertionError("train_llm: the frozen base changed")
         losses = [r["loss"] for r in rec["log"] if "loss" in r]
-        if len(losses) != 3 or not all(map(math.isfinite, losses)):
+        if len(losses) != 4 or not all(map(math.isfinite, losses)):
             raise AssertionError(f"train_llm: losses {losses}")
         for path, t in leaves_with_path(setup.trainer.state.params):
             if not t.isfinite().all() or (path.endswith("/b") and not t.any()):
                 raise AssertionError(f"train_llm: adapter {path} is zero or "
                                      "not finite")
         seconds = step_seconds(rec)
+        first_run = {"losses": losses, "step_ms": [x * 1e3 for x in seconds]}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         tokens = args.batch_size * args.max_length
         median = statistics.median(seconds[1:]) * 1e3
         emit("train_llm", what="SEED_LLAMA_8B + LoRA from tar shards "
              "(python3 -m seed_tpu_torch.train.train_llm " + " ".join(LLM_ARGS)
-             + " --steps 3)", init_s=init_s, losses=losses,
+             + " --steps 4)", init_s=init_s, losses=losses,
              step_ms_runs=[x * 1e3 for x in seconds], step_ms_median=median,
              tokens_per_step=tokens, tokens_per_s=tokens / median * 1e3,
              synthetic_step_ms_median=synthetic_ms,
@@ -1813,27 +1830,27 @@ def phase_train_llm(name: str, synthetic_ms: float) -> dict:
         del setup
         torch.cuda.empty_cache()
 
-        rec = train_llm.main(common + ["--steps", "4", "--resume",
+        rec = train_llm.main(common + ["--steps", "5", "--resume",
                                        *write_llm_eval(tmp)])
         got = [fn.launches for fn in counters]
-        if rec["resumed_from"] != 3 or rec["step"] != 4:
+        if rec["resumed_from"] != 4 or rec["step"] != 5:
             raise AssertionError(f"train_llm --resume: from "
                                  f"{rec['resumed_from']} to {rec['step']}")
-        if got != [4 * n for n in per_step]:
+        if got != [5 * n for n in per_step]:
             raise AssertionError(f"train_llm --resume: launches {got}, "
-                                 f"expected {per_step} per step for 4 steps")
+                                 f"expected {per_step} per step for 5 steps")
         (ev,) = rec["evals"]
         loss = [r["loss"] for r in rec["log"] if "loss" in r]
         if not (math.isfinite(loss[0]) and ev["eval_num_evaluated"] == 2
                 and all(math.isfinite(v) for v in ev.values())):
             raise AssertionError(f"train_llm --resume: loss {loss}, eval {ev}")
-        emit("train_llm", what="a fresh main(--resume): step 3 restored, "
-             "step 4 trained, one caption eval round on the merged weights",
+        emit("train_llm", what="a fresh main(--resume): step 4 restored, "
+             "step 5 trained, one caption eval round on the merged weights",
              resumed_from=rec["resumed_from"], loss=loss[0],
              step_ms=step_seconds(rec)[0] * 1e3, eval=ev,
              launches_per_step=dict(zip((f.__name__ for f in counters),
                                         per_step)), card=name)
-    return {fn.__name__: fn.launches for fn in counters}
+    return {fn.__name__: fn.launches for fn in counters}, first_run
 
 
 # -------------------------------------------------------------- phase 10
@@ -2395,6 +2412,253 @@ def phase_dvm(name: str, logger) -> None:
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- phase 12
+
+def _same_bits(a, b) -> bool:
+    from seed_tpu_torch.utils.tree import leaves_with_path
+    la, lb = leaves_with_path(a), leaves_with_path(b)
+    return ([p for p, _ in la] == [p for p, _ in lb] and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for (_, x), (_, y) in zip(la, lb)))
+
+
+def phase_parallel(name: str, phase9: dict) -> dict:
+    """12a: a one-rank NCCL group on the card. ``train_llm --tp 1`` on phase
+    9's shards and seed, which under the group goes through the mesh Trainer
+    with LLAMA_TP_RULES (DTensor state): four steps through the flash
+    kernels, the first loss against phase 9's, the median of the three
+    steady steps beside phase 9's, the save at step 4 restored into a
+    Trainer without a mesh; then ring attention and the GPipe schedule at
+    the 8B layer's shapes against mha and the unpipelined layers. Returns
+    the flash kernels' launches of the four steps."""
+    import datetime
+    import torch.distributed as dist
+    from seed_tpu_torch import parallel as TP
+    from seed_tpu_torch.models import llama as TM
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops.attention import mha, sliced_causal_mask
+    from seed_tpu_torch.parallel.mesh import use_mesh
+    from seed_tpu_torch.parallel.partition import full_tree
+    from seed_tpu_torch.train import train_llm
+    from seed_tpu_torch.train.trainer import Trainer
+    from seed_tpu_torch.utils.checkpoint import CheckpointManager
+    layers = TM.SEED_LLAMA_8B.layers
+    counters = (TF.flash_fwd, TF.flash_bwd_dq, TF.flash_bwd_dkv)
+    per_step = [4 * layers, 2 * layers, 2 * layers]   # grad_accum 2, remat
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(tmp / "store"), 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = TP.make_mesh(1, 1, 1, 1, device_type="cuda")
+            common = ["--data", write_llm_shards(tmp), *LLM_ARGS, "--tp", "1",
+                      "--output", str(tmp / "out")]
+            args = train_llm.parse_args(common + ["--steps", "4"])
+            t0 = time.perf_counter()
+            setup = train_llm.build(args)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            if setup.trainer.mesh is None:
+                raise AssertionError("parallel: train_llm under a process "
+                                     "group built no mesh")
+            for fn in counters:             # the main path: counted from here
+                fn.launches = 0
+            rec = train_llm.run(args, setup)
+            got = [fn.launches for fn in counters]
+            if got != [4 * n for n in per_step]:
+                raise AssertionError(f"parallel: launches {got}, expected "
+                                     f"{per_step} per step for 4 steps")
+            losses = [r["loss"] for r in rec["log"] if "loss" in r]
+            ref = phase9["losses"][0]
+            diff = abs(losses[0] - ref)
+            if not (losses[0] == ref or diff <= 1e-3 * abs(ref)):
+                raise AssertionError(f"parallel: first loss {losses[0]} vs "
+                                     f"phase 9's {ref} (diff {diff})")
+            # the save at step 4 restores into a Trainer without a mesh
+            saved = full_tree({"params": setup.trainer.state.params,
+                               "opt_state": setup.trainer.state.opt_state})
+            plain = Trainer(lambda p, b, r: None, saved["params"],
+                            setup.trainer.optimizer, device="cuda")
+            step = plain.restore_state(CheckpointManager(str(tmp / "out" /
+                                                             "state")))
+            if step != 4 or not _same_bits(
+                    {"params": plain.state.params,
+                     "opt_state": plain.state.opt_state}, saved):
+                raise AssertionError("parallel: the mesh state restored into "
+                                     "a Trainer without a mesh differs")
+            # steps 2-4 of both runs: the first holds the shuffle buffer's
+            # fill (and, under the mesh, sharding propagation's first pass)
+            step_ms = [x * 1e3 for x in step_seconds(rec)]
+            median = statistics.median(step_ms[1:])
+            median9 = statistics.median(phase9["step_ms"][1:])
+            emit("parallel", what="train_llm --tp 1 on a one-rank NCCL mesh "
+                 "(data, fsdp, pipe, tensor) = (1, 1, 1, 1): the mesh Trainer, "
+                 "DTensor state by LLAMA_TP_RULES, phase 9's shards and seed",
+                 init_s=init_s, losses=losses, phase9_losses=phase9["losses"],
+                 first_loss_diff=diff, first_loss_rel_diff=diff / abs(ref),
+                 step_ms_runs=step_ms, phase9_step_ms_runs=phase9["step_ms"],
+                 steady_step_ms_median=median,
+                 phase9_steady_step_ms_median=median9,
+                 mesh_over_plain=median / median9, launches=got,
+                 restored_step=step, restore_bit_equal=True, card=name)
+            del setup, plain, saved
+            torch.cuda.empty_cache()
+
+            # ring attention and GPipe at the 8B layer's shapes, one rank
+            cfg = TM.SEED_LLAMA_8B
+            B, S, H, D = 1, 1024, cfg.heads, cfg.head_dim
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+            q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(3))
+            mask = sliced_causal_mask(S, S, 0, "cuda")
+            with torch.no_grad():
+                ring = lambda: TP.sequence_parallel_attention(q, k, v, mesh,
+                                                              axis="data")
+                want = mha(q, k, v, mask=mask).float()
+                err = (ring().float() - want).abs().max().item()
+                tol = want.abs().max().item() / 64
+                if not err <= tol:
+                    raise AssertionError(f"ring_attention vs mha: {err} > {tol}")
+                ring_ms = time_ms(ring, iters=5)
+                mha_ms = time_ms(lambda: mha(q, k, v, mask=mask), iters=5)
+                lps = [TM.init_layer(gen, cfg, torch.bfloat16, "cuda")
+                       for _ in range(2)]
+                x_mb = torch.randn(2, B, S, cfg.dim, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                positions = torch.arange(S, device="cuda")
+                layer_fn = lambda lp, h: TM.layer_apply(lp, h, positions, mask,
+                                                        cfg)
+                with use_mesh(mesh):
+                    piped = TP.pipeline_forward(layer_fn, lps, x_mb, axis="pipe")
+                plain_out = []
+                for h in x_mb:
+                    for lp in lps:
+                        h = layer_fn(lp, h)
+                    plain_out.append(h)
+                pipe_err = (piped.float() - torch.stack(plain_out).float()
+                            ).abs().max().item()
+                if pipe_err != 0.0:
+                    raise AssertionError(f"pipeline_forward vs the layers: "
+                                         f"{pipe_err}")
+            emit("parallel", what="ring_attention (sequence_parallel_attention "
+                 "over 'data') and pipeline_forward (2 microbatches, 2 layers) "
+                 "on one rank at B=1 S=1024 H=32 D=128 bf16",
+                 ring_vs_mha_max_abs_err=err, ring_tolerance=tol,
+                 ring_ms=ring_ms, mha_ms=mha_ms,
+                 pipeline_vs_layers_max_abs_err=pipe_err,
+                 pipeline_tolerance=0.0, card=name)
+            del q, k, v, lps, x_mb, piped, plain_out
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return dict(zip((fn.__name__ for fn in counters), got))
+
+
+def phase_extract_image_ids(name: str) -> None:
+    """12b: ``python3 -m seed_tpu_torch.data.extract_image_ids`` at full
+    width (SEED_TOKENIZER, bf16, --batch-size 16) on a tar of 160 JPEGs
+    made as phase 10's: img/s over the whole loop and over the 9 batches
+    after the first (the warm rate); the shards' ids against the same encode in
+    process on the same decoded pixels; the shards read back and made into
+    a caption example."""
+    from seed_tpu_torch import native
+    from seed_tpu_torch.data import build_caption_example, tar_source
+    from seed_tpu_torch.data.extract_image_ids import pixel_batches
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.ops.preprocess import preprocess
+    from seed_tpu_torch.serving.multimodal import ByteTextTokenizer
+    built = native.available()
+    emit("extract_image_ids", native_loader_built=built,
+         native_build_error=native.build_error(), card=name)
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        tmp = Path(tmp)
+        images = write_image_tar(tmp, n=160)
+        cmd = [sys.executable, "-m", "seed_tpu_torch.data.extract_image_ids",
+               "--input", images, "--output", str(tmp / "ids"),
+               "--batch-size", "16", "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError("extract_image_ids failed:\n"
+                                 + proc.stderr[-4000:])
+        m = re.search(r"done: (\d+) images in ([\d.]+)s \((\w+) loader, "
+                      r"waited ([\d.]+)s", proc.stdout)
+        n, seconds, loader, waited = (int(m[1]), float(m[2]), m[3],
+                                      float(m[4]))
+        w = re.search(r"after the first batch: (\d+) images in ([\d.]+)s "
+                      r"\(waited ([\d.]+)s", proc.stdout)
+        warm_n, warm_s, warm_wait = int(w[1]), float(w[2]), float(w[3])
+        if n != 160 or warm_n != 144 or loader != ("native" if built
+                                                    else "python"):
+            raise AssertionError(f"extract_image_ids: {n} images through the "
+                                 f"{loader} loader")
+        records = {r["__key__"]: r for r in
+                   tar_source(str(tmp / "ids" / "host0_*.tar"))}
+        # the same encode in process, on the same decoded pixels
+        params = ST.init_seed_tokenizer(
+            torch.Generator(torch.device("cuda")).manual_seed(0),
+            ST.SEED_TOKENIZER, torch.bfloat16, torch.device("cuda"))
+        _, batches = pixel_batches(images, 16, 224)
+        pil_diff = []
+        try:
+            for batch in batches:
+                pixels = np.stack([b["pixels"] for b in batch])
+                with torch.inference_mode():
+                    ids = ST.encode(params, preprocess(
+                        torch.from_numpy(pixels).cuda(), 224, torch.bfloat16),
+                        ST.SEED_TOKENIZER).cpu().numpy()
+                for b, row in zip(batch, ids):
+                    if records[b["__key__"]]["image_ids"] != row.tolist():
+                        raise AssertionError(f"extract_image_ids: ids of "
+                                             f"{b['__key__']} differ")
+                if loader == "native":
+                    pil_diff += _pil_mean_diff(
+                        images.replace("img_*.tar", "img_000.tar"), batch)
+        finally:
+            batches.close()
+        if pil_diff and not max(pil_diff) < 12.0:
+            raise AssertionError(f"native decode vs PIL: {max(pil_diff)}")
+        rec = records[sorted(records)[0]]
+        ex = build_caption_example(rec, ByteTextTokenizer(), 128,
+                                   reverse_ratio=0.0)
+        if ex is None or len(ex["input_ids"]) != 128 or not any(
+                32000 <= t < 40192 for t in ex["input_ids"]):
+            raise AssertionError("extract_image_ids: no caption example")
+        emit("extract_image_ids", what="python3 -m seed_tpu_torch.data."
+             "extract_image_ids --batch-size 16 (SEED_TOKENIZER bf16) on 160 "
+             "JPEGs; warm: the 144 after the first batch", loader=loader,
+             images=n, encode_loop_s=seconds, img_per_s=n / seconds,
+             loader_wait_s=waited, loader_share=waited / seconds,
+             warm_images=warm_n, warm_s=warm_s, warm_img_per_s=warm_n / warm_s,
+             warm_loader_wait_s=warm_wait, warm_loader_share=warm_wait / warm_s,
+             process_wall_s=wall,
+             ids_equal_in_process=True, native_vs_pil_mean_abs=(
+                 max(pil_diff) if pil_diff else None),
+             shards=len(list((tmp / "ids").glob("*.tar"))),
+             caption_example_tokens=len(ex["input_ids"]), card=name)
+
+
+def _pil_mean_diff(path: str, batch) -> list:
+    """Mean |native - PIL| of each image of a native batch (PIL's resize of
+    the same JPEG of the tar at ``path``)."""
+    from PIL import Image
+    out = []
+    with tarfile.open(path) as tf:
+        for b in batch:
+            data = tf.extractfile(b["__key__"] + ".jpg").read()
+            pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB")
+                             .resize(b["pixels"].shape[:2][::-1]), np.float32)
+            out.append(float(np.abs(b["pixels"].astype(np.float32) - pil).mean()))
+    return out
+
+
 def redesigned_smem_bytes() -> dict:
     """Dynamic shared memory of one block of the tensor-core kernels at the
     main paths' shapes (head dims 88 and 128; the bf16 int8 matmul; the
@@ -2499,7 +2763,8 @@ def main() -> None:
     launches.update(train_launches)
     torch.cuda.empty_cache()
     # the two training entry points, each a path of its own (phases 9, 10)
-    for kernel, n in phase_train_llm(name, synthetic_ms).items():
+    train_llm_launches, phase9 = phase_train_llm(name, synthetic_ms)
+    for kernel, n in train_llm_launches.items():
         launches[kernel] += n
     from seed_tpu_torch.utils.metrics_logging import MetricLogger
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2522,6 +2787,11 @@ def main() -> None:
         phase_captions(name, tmp, common, logger)
     torch.cuda.empty_cache()
     phase_dvm(name, logger)
+    torch.cuda.empty_cache()
+    # the sharded programs on a one-rank NCCL group, a path of their own
+    for kernel, n in phase_parallel(name, phase9).items():
+        launches[kernel] += n
+    phase_extract_image_ids(name)
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} was never launched on its main path")

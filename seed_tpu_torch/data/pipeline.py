@@ -30,10 +30,17 @@ log = logging.getLogger("seed_tpu_torch.data")
 
 
 def process_index_count() -> Tuple[int, int]:
-    """(rank, world size) of this process under torch.distributed, or
-    (0, 1) when no process group is initialised."""
+    """(index, count) of this process's data shard: under a mesh
+    (``parallel.mesh.current_mesh``) its index along (data, fsdp) and their
+    product, so that the ranks of one batch slice (its tensor and pipe
+    peers) read the same files; else the torch.distributed rank and world
+    size; (0, 1) when no process group is initialised."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
+        from ..parallel.mesh import BATCH_AXES, axis_index, axis_size, current_mesh
+        mesh = current_mesh()
+        if mesh is not None:
+            return axis_index(BATCH_AXES, mesh), axis_size(BATCH_AXES, mesh)
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
 

@@ -106,13 +106,14 @@ def clip_contrastive_loss(logit_scale: torch.Tensor, embed_x: torch.Tensor,
                           embed_y: torch.Tensor,
                           axis_name: Optional[str] = None) -> torch.Tensor:
     """Symmetric CE over unnormalized embeds with a linear logit scale
-    (modeling.py:125-139: no l2norm, no exp). ``axis_name`` (gathering the
-    embeds across devices) needs the port's ``parallel/``, which is not
-    there yet."""
+    (modeling.py:125-139: no l2norm, no exp). ``axis_name`` (a mesh axis or
+    a process group) gathers both embeds from its ranks first, so every rank
+    contrasts the global batch; each rank's block keeps its gradient
+    (``parallel.comm.all_gather``)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "clip_contrastive_loss(axis_name=...) gathers across devices, "
-            "which needs the port's parallel/ (not ported yet)")
+        from ..parallel.comm import all_gather
+        embed_x = all_gather(embed_x, axis_name, tiled=True)
+        embed_y = all_gather(embed_y, axis_name, tiled=True)
     logits = logit_scale.float() * (embed_x.float() @ embed_y.float().T)
     diag = torch.arange(logits.shape[0], device=logits.device)
     loss_x = -torch.log_softmax(logits, -1)[diag, diag].mean()

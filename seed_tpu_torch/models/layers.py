@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from ..ops.int8_matmul import (can_use_kernel, int8_matmul, int_dot,
                                w8a8_epilogue, w8a8_kernel_takes, w8a8_matmul)
 from ..ops.quantization import quantize_acts
+from ..parallel.local import embedding, gathered, product_operands
 from ..utils.tree import leaves, tree_map
 
 Params = Dict[str, Any]
@@ -47,9 +48,10 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
         else:
             y = (x @ wq.to(x.dtype)) * p["scale"].to(x.dtype)
     else:
-        y = x @ p["kernel"].to(x.dtype)
+        x, w = product_operands(x, p["kernel"])
+        y = x @ w.to(x.dtype)
     if "bias" in p:
-        y = y + p["bias"].to(y.dtype)
+        y = y + gathered(p["bias"]).to(y.dtype)
     return y
 
 
@@ -102,7 +104,7 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
     # out-of-range ids clip to the table, as seed_tpu's take(mode="clip")
     table = p["embedding"]
-    return table[ids.clamp(0, table.shape[0] - 1)]
+    return embedding(table, ids.clamp(0, table.shape[0] - 1))
 
 
 # --------------------------- initializers ---------------------------------

@@ -32,6 +32,7 @@ from ..ops.attention import NEG_INF, mha, sliced_causal_mask
 from ..ops.flash_attention import flash_attention
 from ..ops.quantization import quantize_tree
 from ..ops.sampling import fold_in, sample, sample_batched
+from ..parallel.local import local_count, on_local_shards
 from . import layers as L
 from .. import resolve_device
 
@@ -143,11 +144,23 @@ def _cache_kv_dequant(c: torch.Tensor, scale: Optional[torch.Tensor],
     return torch.mul(c, scale[..., None], out=out)
 
 
+def cache_kv_heads(params, cfg: LlamaConfig) -> int:
+    """The kv heads of ``params`` one rank computes: ``cfg.kv_heads``, or
+    its share of them when the tree is sharded over ``tensor``
+    (parallel.shard_params with LLAMA_TP_RULES), so that a rank's cache
+    holds its own heads only."""
+    kp = params["layers"][0]["k_proj"]
+    return local_count(cfg.kv_heads, kp.get("kernel", kp.get("kernel_q")))
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
-               dtype=torch.bfloat16, device="cuda") -> KVCache:
+               dtype=torch.bfloat16, device="cuda",
+               kv_heads: Optional[int] = None) -> KVCache:
+    """A zeroed cache of ``kv_heads`` heads (``cfg.kv_heads`` unless given:
+    a rank of a sharded engine holds ``cache_kv_heads``)."""
     device = resolve_device(device)
     S = max_len or cfg.max_seq_len
-    shape = (cfg.layers, batch, cfg.kv_heads, S, cfg.head_dim)
+    shape = (cfg.layers, batch, kv_heads or cfg.kv_heads, S, cfg.head_dim)
     scale = None
     if dtype == torch.int8:
         scale = torch.zeros(shape[:-1] + (2,), dtype=torch.float32,
@@ -305,10 +318,28 @@ def _logits(params, x, cfg: LlamaConfig) -> torch.Tensor:
 
 # ----------------------------- public API ----------------------------------
 
+def layer_apply(lp, x: torch.Tensor, positions: torch.Tensor,
+                mask: Optional[torch.Tensor], cfg: LlamaConfig,
+                use_flash: bool = False, attn_fn=None) -> torch.Tensor:
+    """One decoder layer over a full sequence (seed_tpu's cache-less
+    ``_layer_apply``): ``attn_fn(q, k, v) -> [B, N, H, D]``, when given,
+    replaces the attention; else the flash kernels or ``mha`` under
+    ``mask``."""
+    q, k, v = _attn_qkv(lp, x, positions, cfg)
+    if attn_fn is not None:
+        o = attn_fn(q, k, v)
+    elif use_flash:
+        o = flash_attention(q, k, v, causal=True)
+    else:
+        o = mha(q, k, v, mask=mask)
+    return _attn_out_mlp(lp, x, o, cfg)
+
+
 def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
-            remat: bool = False, use_flash: bool = False) -> torch.Tensor:
+            remat: bool = False, use_flash: bool = False,
+            attn_fn=None) -> torch.Tensor:
     """Training/eval forward over a full sequence -> logits [B, N, V],
     differentiable in every floating-point leaf of ``params``.
 
@@ -317,22 +348,29 @@ def forward(params, input_ids: torch.Tensor, cfg: LlamaConfig,
     the tiled flash kernels and their backward kernels (right padding
     assumed: real tokens never attend forward into padding, and padded
     positions carry no loss; ``attn_mask`` then only matters on the loss
-    side). ``remat`` keeps only each layer's input for the backward pass and
-    recomputes the layer there (``torch.utils.checkpoint``, non-reentrant),
-    as seed_tpu's ``jax.checkpoint`` per layer does."""
+    side). ``attn_fn`` replaces attention entirely (sequence-parallel ring
+    attention, which owns its causal masking across shards: with it, a
+    ``attn_mask`` raises). ``remat`` keeps only each layer's input for the
+    backward pass and recomputes the layer there (``torch.utils.checkpoint``,
+    non-reentrant), as seed_tpu's ``jax.checkpoint`` per layer does."""
     B, N = input_ids.shape
     x = L.embed(params["embed_tokens"], input_ids)
     if positions is None:
         positions = torch.arange(N, device=input_ids.device)
-    mask = sliced_causal_mask(N, N, 0, input_ids.device)
-    if attn_mask is not None:
-        mask = mask & attn_mask[:, None, None, :].bool()
+    if attn_fn is not None:
+        if attn_mask is not None:
+            raise ValueError(
+                "attn_fn owns masking entirely (sequence-parallel shards "
+                "cannot see a global [B, N] mask); fold padding into the "
+                "loss labels instead of passing attn_mask with attn_fn")
+        mask = None
+    else:
+        mask = sliced_causal_mask(N, N, 0, input_ids.device)
+        if attn_mask is not None:
+            mask = mask & attn_mask[:, None, None, :].bool()
 
     def layer(lp, xx):
-        q, k, v = _attn_qkv(lp, xx, positions, cfg)
-        o = (flash_attention(q, k, v, causal=True) if use_flash
-             else mha(q, k, v, mask=mask))
-        return _attn_out_mlp(lp, xx, o, cfg)
+        return layer_apply(lp, xx, positions, mask, cfg, use_flash, attn_fn)
 
     for lp in params["layers"]:
         x = (checkpoint(layer, lp, x, use_reentrant=False) if remat
@@ -371,19 +409,31 @@ def prefill(params, input_ids: torch.Tensor, cache: KVCache, cfg: LlamaConfig,
     sl = slice(start, start + N)
     for i, lp in enumerate(params["layers"]):
         q, k, v = _attn_qkv(lp, x, positions, cfg)
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)       # [B, H_kv, N, D]
-        if cache.scale is not None:                         # int8: quantize
-            cache.k[i, :, :, sl], cache.scale[i, :, :, sl, 0] = _cache_kv_quant(kt)
-            cache.v[i, :, :, sl], cache.scale[i, :, :, sl, 1] = _cache_kv_quant(vt)
-        else:
-            _raw(cache.k)[i, :, :, sl] = _raw(_cache_cast(kt, cache.k.dtype))
-            _raw(cache.v)[i, :, :, sl] = _raw(_cache_cast(vt, cache.v.dtype))
-        # attention reads the stored cache, the chunk just written included
-        o = _cached_attn(q, cache.k[i], cache.v[i], mask,
-                         None if cache.scale is None else cache.scale[i])
+        # a sharded model's q/k/v (DTensors) meet the cache on each rank's
+        # own heads: the cache holds those heads only (``cache_kv_heads``)
+        o = on_local_shards(_write_and_attend, q, k, v, split_rows=False,
+                            cache=cache, layer=i, sl=sl, mask=mask)
         x = _attn_out_mlp(lp, x, o, cfg)
     cache.index = start + N
     return _logits(params, x, cfg), cache
+
+
+def _write_and_attend(q, k, v, cache: KVCache, layer: int, sl: slice,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Write the chunk's k/v [B, N, H_kv, D] into ``layer``'s cache at
+    ``sl``, then attend q [B, N, H, D] over the stored cache, the chunk just
+    written included; -> [B, N, H, D]."""
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)           # [B, H_kv, N, D]
+    i = layer
+    if cache.scale is not None:                             # int8: quantize
+        cache.k[i, :, :, sl], cache.scale[i, :, :, sl, 0] = _cache_kv_quant(kt)
+        cache.v[i, :, :, sl], cache.scale[i, :, :, sl, 1] = _cache_kv_quant(vt)
+    else:
+        _raw(cache.k)[i, :, :, sl] = _raw(_cache_cast(kt, cache.k.dtype))
+        _raw(cache.v)[i, :, :, sl] = _raw(_cache_cast(vt, cache.v.dtype))
+    o = _cached_attn(q, cache.k[i], cache.v[i], mask,
+                     None if cache.scale is None else cache.scale[i])
+    return o.reshape(q.shape)
 
 
 def decode_step(params, input_ids: torch.Tensor, cache: KVCache,

@@ -179,15 +179,14 @@ def norm_ema_update(params, z: torch.Tensor, indices: torch.Tensor,
 
     Per-code means of the normalized assigned vectors are l2-normalized,
     codes with no assignment keep their row, and the EMA'd weight goes back
-    onto the unit sphere (norm_ema_inplace :237-239). ``axis_name`` (the
-    sum of bins and sums across data-parallel devices) needs the port's
-    ``parallel/``, which is not there yet."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "norm_ema_update(axis_name=...) sums across devices, which needs "
-            "the port's parallel/ (not ported yet)")
+    onto the unit sphere (norm_ema_inplace :237-239). ``axis_name`` (a mesh
+    axis or a process group) sums bins and sums across its ranks, the
+    reference's ``all_reduce_fn`` under DDP."""
     n_codes = params["codebook"].shape[0]
     bins, sums = _assign(_l2norm(z.float()), indices, n_codes)
+    if axis_name is not None:
+        from ..parallel.comm import psum
+        bins, sums = psum(bins, axis_name), psum(sums, axis_name)
     cluster = decay * params["cluster_size"] + (1 - decay) * bins
     zero = bins == 0
     mean = sums / torch.where(zero, torch.ones_like(bins), bins)[:, None]

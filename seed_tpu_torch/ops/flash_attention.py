@@ -579,7 +579,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     q_offset: int = 0, exact: bool = False) -> torch.Tensor:
     """Attention on [B, S, H, D] tensors with seed_tpu's kernel routing. GQA
-    supported. Short non-causal sequences take the ``short_mha`` kernel."""
+    supported. Short non-causal sequences take the ``short_mha`` kernel.
+    DTensors (a model sharded over a mesh) run on their local rows and
+    heads (``parallel.local.on_local_shards``)."""
+    from ..parallel.local import is_sharded, on_local_shards
+    if is_sharded(q):
+        return on_local_shards(flash_attention, q, k, v, causal=causal,
+                               scale=scale, q_offset=q_offset, exact=exact)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5

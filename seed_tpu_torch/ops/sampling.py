@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.local import whole
+
 NEG_INF = -1e9
 
 
@@ -56,7 +58,9 @@ def sample(
     top_p_candidates: int = 0,      # 0 = exact full-vocabulary sort
 ) -> torch.Tensor:
     """-> int64 [B]. Greedy (argmax, first index on ties) when ``do_sample``
-    is off or the temperature is 0."""
+    is off or the temperature is 0. The logits of a sharded model (a
+    DTensor, parallel/) are gathered whole first."""
+    logits = whole(logits)
     if not do_sample or temperature == 0.0:
         return logits.argmax(dim=-1)
     logits = logits.float() / max(temperature, 1e-6)

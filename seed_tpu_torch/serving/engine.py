@@ -49,6 +49,8 @@ class LlamaEngine:
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
+        # a tree sharded over ``tensor`` caches each rank's own kv heads
+        self.kv_heads = M.cache_kv_heads(params, cfg)
         self.max_len = max_len or cfg.max_seq_len
         self.buckets = sorted(b for b in prompt_buckets if b <= self.max_len)
         self.cache_dtype = cache_dtype
@@ -75,7 +77,7 @@ class LlamaEngine:
             ids[i, bucket - lens[i]:] = np.asarray(p, np.int64)
             mask[i, bucket - lens[i]:] = 1
         cache = M.init_cache(self.cfg, B, self.max_len, self.cache_dtype,
-                             self.device)
+                             self.device, kv_heads=self.kv_heads)
         logits, cache = M.prefill(self.params,
                                   torch.from_numpy(ids).to(self.device), cache,
                                   self.cfg,

@@ -18,6 +18,33 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def rank_device(device: torch.device) -> torch.device:
+    """Join torchrun's process group when its environment is set (RANK,
+    WORLD_SIZE, MASTER_ADDR, LOCAL_RANK; nccl on ``cuda:{LOCAL_RANK}``, gloo
+    on the CPU) unless one is up already; returns the device of this rank.
+    Without either, the device as given (one process, no group)."""
+    import torch.distributed as dist
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    if dist.is_initialized() and device.type == "cuda":
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return device
+
+
+def train_mesh(device: torch.device, tp: int = 1):
+    """seed_tpu's ``auto_mesh(tp=tp)`` over the ranks of the process group
+    (fsdp over the rest), or None without a group; ``tp`` > 1 then raises."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if tp != 1:
+            raise ValueError(f"--tp {tp} shards over {tp} ranks or more: run "
+                             f"under torchrun --nproc_per_node N (N a multiple "
+                             f"of {tp})")
+        return None
+    from ..parallel import auto_mesh
+    return auto_mesh(tp=tp, device_type=device.type)
+
+
 class Feed:
     """Iterates the batches of a background producer (``data.Prefetcher``)
     and times how long the training loop waits for each (``waits``).
@@ -72,22 +99,25 @@ def train_rounds(args, trainer, feed: Feed, log: StepLog,
     ``run_eval`` (None, or the score that picks the best checkpoint and the
     metrics to log), the full train state under ``<output>/state`` and
     ``deploy_tree()`` under ``<output>`` (also as ``best`` when the score
-    is the best so far). Returns the run's record."""
+    is the best so far). Under a mesh rank 0 logs and writes. Returns the
+    run's record."""
     mgr = CheckpointManager(args.output)
     state_mgr = CheckpointManager(os.path.join(args.output, "state"),
                                   max_to_keep=2)
+    say = log if trainer.is_main else None   # rank 0 logs (under a mesh)
     start0, resumed = 0, None
     if args.resume:
         resumed = trainer.restore_state(state_mgr)
         if resumed is not None:
             start0 = resumed
-            print(f"resumed from step {resumed}", flush=True)
+            if say:
+                print(f"resumed from step {resumed}", flush=True)
     best, evals, round_starts = None, [], []
     for start in range(start0, args.steps, args.save_steps):
         n = min(args.save_steps, args.steps - start)
         round_starts.append(time.perf_counter())
         trainer.train(feed, n, rng=generator(trainer.device, args.seed + start),
-                      log_fn=log)
+                      log_fn=say)
         scored = run_eval()
         is_best = False
         if scored is not None:
@@ -95,11 +125,14 @@ def train_rounds(args, trainer, feed: Feed, log: StepLog,
             is_best = best is None or (score > best if higher_is_better
                                        else score < best)
             best = score if is_best else best
-            log(int(trainer.state.step), metrics)
+            if say:
+                say(int(trainer.state.step), metrics)
             evals.append({"step": int(trainer.state.step), **metrics})
         trainer.save_state(state_mgr)                       # operational
-        mgr.save(int(trainer.state.step), deploy_tree(), is_best=is_best)
-    print("training done", flush=True)
+        trainer.save_tree(mgr, int(trainer.state.step), deploy_tree(),
+                          is_best=is_best)
+    if say:
+        print("training done", flush=True)
     return {"step": int(trainer.state.step), "resumed_from": resumed,
             "log": log.records, "evals": evals, "data_waits_s": feed.waits,
             "round_starts": round_starts}

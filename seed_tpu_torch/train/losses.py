@@ -1,7 +1,8 @@
 """Training losses (counterpart of seed_tpu/train/losses.py).
 
 - next-token cross entropy with -100 label masking, fp32 log-softmax
-- label-smoothed InfoNCE contrastive loss, on one device
+- label-smoothed InfoNCE contrastive loss, over the global batch of a
+  mesh axis when given one
 - cosine reconstruction + distillation MSE of the tokenizer's stage 2
 """
 from __future__ import annotations
@@ -40,19 +41,25 @@ def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor,
 def info_nce(image_feat: torch.Tensor, text_feat: torch.Tensor, temp,
              axis_name: Optional[str] = None,
              label_smoothing: float = 0.1) -> torch.Tensor:
-    """Bidirectional contrastive loss over the local batch:
-    image_feat/text_feat [B, D], L2-normalized. The all-gather across
-    devices that seed_tpu does under a named mesh axis belongs to the
-    parallel slice of the port; ``axis_name`` raises until it lands."""
+    """Bidirectional contrastive loss: image_feat/text_feat [B, D],
+    L2-normalized. With ``axis_name`` (a mesh axis or a process group) the
+    features of every rank are gathered, so each rank contrasts its B
+    examples against the global batch (concat_all_gather of the reference);
+    each rank's block keeps its gradient (``parallel.comm.all_gather``)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "info_nce: the cross-device gather (axis_name) is not ported; "
-            "it comes with seed_tpu_torch's parallel modules")
+        from ..parallel.comm import all_gather, index_of
+        all_img = all_gather(image_feat, axis_name, tiled=True)
+        all_txt = all_gather(text_feat, axis_name, tiled=True)
+        my = index_of(axis_name)
+    else:
+        all_img, all_txt, my = image_feat, text_feat, 0
     B = image_feat.shape[0]
-    sim_i2t = (image_feat @ text_feat.T) / temp
-    sim_t2i = (text_feat @ image_feat.T) / temp
-    onehot = torch.eye(B, device=image_feat.device)
-    smoothed = onehot * (1 - label_smoothing) + label_smoothing / B
+    sim_i2t = (image_feat @ all_txt.T) / temp             # [B, G]
+    sim_t2i = (text_feat @ all_img.T) / temp
+    G = all_txt.shape[0]
+    onehot = torch.zeros(B, G, device=image_feat.device)
+    onehot[torch.arange(B), my * B + torch.arange(B)] = 1.0
+    smoothed = onehot * (1 - label_smoothing) + label_smoothing / G
 
     def ce(sim):
         logp = torch.log_softmax(sim.float(), dim=-1)

@@ -27,6 +27,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..parallel.local import whole
 from ..utils.tree import leaves, map_with_path, path_str, tree_map
 
 
@@ -90,14 +91,15 @@ def warmup_step_decay(base_lr: float, warmup_steps: int,
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, summed in fp32."""
+    """sqrt of the sum of squares over every leaf, summed in fp32; a plain
+    tensor also when the leaves are DTensors (a sharded state)."""
     total = None
     for x in leaves(tree):
         sq = x.float().square().sum()
         total = sq if total is None else total + sq
     if total is None:
         return torch.zeros(())
-    return total.sqrt()
+    return whole(total).sqrt()
 
 
 def _decays(path, p: torch.Tensor) -> bool:

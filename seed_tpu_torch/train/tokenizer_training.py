@@ -36,6 +36,7 @@ from ..models.qformer import (lm_head_apply, qformer_apply,
 from ..models.seed_tokenizer import (SeedTokenizerConfig, _decode_block_cfg,
                                      distill_head)
 from ..models.vit import blocks_apply, vit_apply
+from ..parallel.local import bincount
 from .losses import cosine_recon_loss, cross_entropy, info_nce, mse_loss
 
 # trainable-path patterns: they pick both the leaves the optimizer trains
@@ -282,8 +283,7 @@ def stage2_loss(params, batch, rng, cfg: Stage2Config
     total = (cfg.w_embed * vq_loss + cfg.w_recon * loss_recon
              + cfg.w_distill * loss_distill)
     # the share of the codebook this batch hits
-    n_codes = params["vq"]["codebook"].shape[0]
-    hits = torch.bincount(indices.reshape(-1).long(), minlength=n_codes)
+    hits = bincount(indices, params["vq"]["codebook"].shape[0])
     metrics = {"vq": vq_loss, "recon": loss_recon, "distill": loss_distill,
                "codebook_usage": (hits > 0).float().mean()}
     return total, metrics

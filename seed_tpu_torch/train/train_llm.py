@@ -16,7 +16,15 @@ given.
         --grad-accum 4 --lr 1.5e-4 --output ckpts/llm
 
 It runs on the card (``--device cuda``, the default) and raises where there
-is none; ``--device cpu`` runs it on the CPU.
+is none; ``--device cpu`` runs it on the CPU. Under torchrun (or in a
+process whose caller has initialised a process group) it trains through the
+mesh Trainer over seed_tpu's ``auto_mesh(tp=--tp)`` with ``LLAMA_TP_RULES``,
+the frozen base sharded by the same rules; each (data, fsdp) slice reads its
+own share of the shard files and ``--batch-size`` stays global; rank 0 logs
+and writes:
+
+    torchrun --nproc_per_node 8 -m seed_tpu_torch.train.train_llm \\
+        --data 'shards/*.tar' --model 8b --tp 2 --output ckpts/llm
 
 Where it departs from the script: under ``--lora`` the script hands
 ``{"base", "lora"}`` to the trainer, so the base trains too (an 8B base
@@ -42,11 +50,14 @@ from .. import resolve_device
 from ..data import (Prefetcher, batched, build_caption_example,
                     build_conversation_example, collate, shuffle_buffer,
                     tar_source)
+from ..data.pipeline import process_index_count
+from ..parallel.partition import LLAMA_TP_RULES, shard_params
 from ..models import llama as M
 from ..serving.engine import GenerationConfig, LlamaEngine
 from ..serving.multimodal import ByteTextTokenizer
 from ..utils.checkpoint import restore_checkpoint
-from .entry import Feed, StepLog, generator, train_rounds
+from .entry import (Feed, StepLog, generator, rank_device, train_mesh,
+                    train_rounds)
 from .lora import apply_lora, init_lora, merge_lora_weights
 from .losses import cross_entropy
 from .optim import adamw, cosine_with_floor, learnable_image_embeddings_only
@@ -128,22 +139,22 @@ class Setup:
     tok: ByteTextTokenizer
 
     def model(self):
-        """The weights the model runs with: adapters merged into the base."""
+        """The weights the model runs with: adapters merged into the base
+        (full tensors under a mesh)."""
+        from ..parallel.local import full_tree
         p = self.trainer.state.params
-        return p if self.base is None else merge_lora_weights(self.base,
-                                                              p["lora"])
+        return full_tree(p if self.base is None else merge_lora_weights(
+            self.base, p["lora"]))
 
 
 def build(args) -> Setup:
-    """Model, adapters, optimizer and trainer on ``args.device``."""
-    if args.tp != 1:
-        raise NotImplementedError(
-            "--tp > 1 shards the model over a mesh, which seed_tpu_torch's "
-            "parallel/ modules will bring; one card runs --tp 1")
+    """Model, adapters, optimizer and trainer on ``args.device`` (this
+    rank's card under a mesh)."""
     if args.lora and args.learnable_embeddings_only:
         raise ValueError("--learnable-embeddings-only restricts embed_tokens "
                          "and lm_head, which train only under --no-lora")
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    mesh = train_mesh(device, args.tp)
     cfg = MODELS[args.model]
     base = (restore_checkpoint(args.llm_ckpt, device=device) if args.llm_ckpt
             else M.init_llama(generator(device, args.seed), cfg,
@@ -151,6 +162,8 @@ def build(args) -> Setup:
     if args.lora:
         params = {"lora": init_lora(generator(device, args.seed + 1), base,
                                     r=16, alpha=32)}
+        if mesh is not None:
+            base = shard_params(base, mesh, LLAMA_TP_RULES)
     else:
         params, base = base, None
     sched = cosine_with_floor(args.lr, args.warmup, args.steps,
@@ -162,7 +175,8 @@ def build(args) -> Setup:
                                               vocab_size=cfg.vocab_size)
     trainer = Trainer(llm_loss(cfg, base, args.flash), params, opt,
                       TrainerConfig(grad_accum=args.grad_accum,
-                                    log_every=args.log_steps), device=device)
+                                    log_every=args.log_steps), device=device,
+                      mesh=mesh, rules=LLAMA_TP_RULES)
     return Setup(cfg, base, trainer, ByteTextTokenizer())
 
 
@@ -185,8 +199,10 @@ def example_stream(args, tok):
 
 def batch_stream(args, tok):
     """Micro-batches of the shuffled examples; with grad_accum > 1, each
-    step's micro-batches stacked to [grad_accum, micro, ...]."""
-    micro = args.batch_size // args.grad_accum
+    step's micro-batches stacked to [grad_accum, micro, ...]. Under a mesh
+    the micro-batches are this (data, fsdp) slice's share of the global
+    batch, from its own share of the files."""
+    micro = args.batch_size // args.grad_accum // process_index_count()[1]
     base_iter = batched(shuffle_buffer(example_stream(args, tok), 4096,
                                        args.seed), micro, collate)
     while True:

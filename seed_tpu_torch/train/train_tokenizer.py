@@ -19,7 +19,11 @@ It runs on the card (``--device cuda``, the default) and raises where there
 is none; ``--device cpu`` runs it on the CPU. The batches are made in a
 background thread: on the card its device work (normalisation, and in
 stage 2 the CLIP tower) runs on a CUDA stream of its own, and each batch is
-finished before the step takes it.
+finished before the step takes it. Under torchrun (or a process group its
+caller has initialised) the Trainer shards the state over seed_tpu's
+``auto_mesh()`` (FSDP over every rank, the automatic specs), each rank reads
+its own share of the tars, ``--batch-size`` stays global, and rank 0 logs
+and writes.
 """
 from __future__ import annotations
 
@@ -37,14 +41,17 @@ from .. import resolve_device
 from ..data import (Prefetcher, batched, decode_image_text,
                     decode_image_text_lazy, resize_draft, shuffle_buffer,
                     tar_source)
+from ..data.pipeline import process_index_count
 from ..models import SEED_TOKENIZER, TINY_TOKENIZER, init_seed_tokenizer
 from ..models.qformer import init_lm_head
 from ..models.vit import (CLIP_VIT_H, clip_image_embed,
                           init_clip_vision_projection, init_vit)
 from ..ops.preprocess import preprocess
+from ..parallel.local import whole
 from ..serving.multimodal import ByteTextTokenizer
 from ..utils.checkpoint import filter_tree, merge_tree, restore_checkpoint
-from .entry import Feed, StepLog, generator, train_rounds
+from .entry import (Feed, StepLog, generator, rank_device, train_mesh,
+                    train_rounds)
 from .optim import adamw, masked_trainable, warmup_cosine, warmup_step_decay
 from .tokenizer_training import (STAGE1_TRAINABLE, STAGE2_TRAINABLE,
                                   Stage1Config, Stage2Config, init_itm_head,
@@ -117,7 +124,8 @@ class Setup:
 def build(args) -> Setup:
     """Tokenizer tree (merged over ``--init-ckpt``), heads, the frozen CLIP
     tower of stage 2, optimizer and trainer on ``args.device``."""
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    mesh = train_mesh(device)
     lr = args.lr or (3e-5 if args.stage == 1 else 1e-4)  # the yaml defaults
     base_cfg = TINY_TOKENIZER if args.arch == "tiny" else SEED_TOKENIZER
     tok_cfg = dataclasses.replace(
@@ -187,7 +195,7 @@ def build(args) -> Setup:
     opt = masked_trainable(
         adamw(sched, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.05,
               params=params), params, trainable)
-    trainer = Trainer(loss_fn, params, opt, device=device)
+    trainer = Trainer(loss_fn, params, opt, device=device, mesh=mesh)
     return Setup(tok_cfg, trainer, trainable, loss_fn, clip)
 
 
@@ -254,14 +262,18 @@ def run_eval(args, setup: Setup, collate) -> Optional[float]:
                         cycle_count=1, seed=args.seed)
     losses = []
     device = setup.trainer.device
-    with torch.no_grad():
+    sharded = setup.trainer.mesh is not None
+    if sharded:                 # the batch is plain, the params DTensors
+        from torch.distributed.tensor.experimental import implicit_replication
+    with torch.no_grad(), implicit_replication() if sharded else \
+            contextlib.nullcontext():
         for i, batch in enumerate(batched(example_stream(args, source),
                                           args.batch_size, collate)):
             if i >= args.eval_batches:
                 break
             loss, _ = setup.loss_fn(setup.trainer.state.params, batch,
                                     generator(device, i))
-            losses.append(float(loss))
+            losses.append(float(whole(loss)))
     return float(np.mean(losses)) if losses else None
 
 
@@ -274,9 +286,10 @@ def run(args, setup: Setup) -> Dict[str, Any]:
         loss = run_eval(args, setup, collate)
         return None if loss is None else (loss, {"eval_loss": loss})
 
+    local_batch = args.batch_size // process_index_count()[1]
     data = Prefetcher(batched(shuffle_buffer(example_stream(args), 2000,
                                              args.seed),
-                              args.batch_size, collate), depth=2)
+                              local_batch, collate), depth=2)
     try:
         return train_rounds(
             args, setup.trainer, Feed(data, setup.trainer.device), StepLog(),

@@ -640,3 +640,82 @@ def test_caption_generators_card_cached_vs_recompute(gen):
     b = TQ.qformer_generate_caption_cached(p, head, feats, cfg, 101, 102, 12)
     assert a.shape == (4, 12) and (a[:, 0] == 101).all()
     assert torch.equal(a, b)
+
+
+@pytest.fixture
+def nccl_mesh(gen, tmp_path):
+    """A one-rank NCCL process group (FileStore under tmp_path) and its
+    (1, 1, 1, 1) mesh; the group is destroyed after the test."""
+    import datetime
+    import torch.distributed as dist
+    from seed_tpu_torch import parallel as TP
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        yield TP.make_mesh(1, 1, 1, 1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_rank_mesh_trainer_step_equals_the_plain_step(gen, nccl_mesh):
+    """A LLaMA of 2 layers, 4 heads of 64, S=256 (so causal attention takes
+    the flash kernels) in bf16: one mesh Trainer step (DTensor state by
+    LLAMA_TP_RULES) against the same step without a mesh: the flash kernels
+    launch as many times, loss and grad_norm equal, parameters equal."""
+    from seed_tpu_torch import parallel as TP
+    from seed_tpu_torch.models import llama as TM
+    from seed_tpu_torch.parallel.partition import full_tree
+    from seed_tpu_torch.train import optim as TO
+    from seed_tpu_torch.train.losses import next_token_loss
+    from seed_tpu_torch.train.trainer import Trainer
+    cfg = TM.LlamaConfig(vocab_size=512, dim=256, layers=2, heads=4,
+                         kv_heads=4, ffn_dim=512, max_seq_len=256)
+    params = TM.init_llama(gen, cfg, torch.bfloat16, "cuda")
+    ids = torch.randint(3, 500, (2, 256), generator=gen, device="cuda")
+
+    def loss_fn(p, batch, rng):
+        logits = TM.forward(p, batch["ids"], cfg, use_flash=True)
+        return next_token_loss(logits, batch["ids"])
+
+    def run(mesh):
+        tr = Trainer(loss_fn, params, TO.adamw(lambda s: 1e-3),
+                     device="cuda", mesh=mesh, rules=TP.LLAMA_TP_RULES)
+        before = TF.flash_fwd.launches
+        m = tr.step({"ids": ids})
+        return (TF.flash_fwd.launches - before, {k: float(v) for k, v in
+                                                 m.items()},
+                full_tree(tr.state.params))
+
+    n0, m0, p0 = run(None)
+    n1, m1, p1 = run(nccl_mesh)
+    assert n1 == n0 == cfg.layers
+    assert m1["loss"] == pytest.approx(m0["loss"], rel=1e-3)
+    assert m1["grad_norm"] == pytest.approx(m0["grad_norm"], rel=1e-2)
+    for a, b in zip(_leaves(p0), _leaves(p1)):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-3
+
+
+def test_ring_attention_on_the_card(gen, nccl_mesh):
+    """ring_attention over the one-rank 'data' axis on cuda bf16 tensors at
+    the 8B layer's shape against mha (1/64 of the output's scale), and its
+    gradient against mha's (fp32, 1e-4)."""
+    from seed_tpu_torch import parallel as TP
+    from seed_tpu_torch.ops.attention import sliced_causal_mask
+    B, S, H, D = 1, 1024, 32, 128
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               for _ in range(3))
+    mask = sliced_causal_mask(S, S, 0, "cuda")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = TP.sequence_parallel_attention(qb, kb, vb, nccl_mesh, axis="data")
+    want = mha(qb, kb, vb, mask=mask).float()
+    assert got.dtype == torch.bfloat16 and got.is_cuda
+    assert (got.float() - want).abs().max().item() <= want.abs().max().item() / 64
+    q, k, v = (t[:, :256, :4].clone().requires_grad_() for t in (q, k, v))
+    TP.sequence_parallel_attention(q, k, v, nccl_mesh, axis="data").sum().backward()
+    g = [t.grad for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    mha(q, k, v, mask=sliced_causal_mask(256, 256, 0, "cuda")).sum().backward()
+    for a, t in zip(g, (q, k, v)):
+        assert (a - t.grad).abs().max().item() <= 1e-4

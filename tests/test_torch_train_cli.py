@@ -218,7 +218,8 @@ def test_train_llm_refuses_what_one_card_cannot_run(tmp_path):
     write_shard(tmp_path / "data_000.tar", qa_records(4))
     argv = ["--data", str(tmp_path / "data_*.tar"), "--output",
             str(tmp_path / "o"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    # --tp 2 needs two ranks (tests/test_torch_parallel_train.py runs them)
+    with pytest.raises(ValueError, match="torchrun"):
         train_llm.main(argv + ["--tp", "2"])
     with pytest.raises(ValueError, match="--no-lora"):
         train_llm.main(argv + ["--learnable-embeddings-only"])
