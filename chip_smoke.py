@@ -6,14 +6,20 @@ Phases, each printing lines of its own:
 
 1. build   — compile the four CUDA sources of seed_tpu_torch/csrc/ (one nvcc
              per source, all at once) into build/seed_tpu_torch/; a spill in
-             any tensor-core kernel fails the run.
+             any tensor-core kernel or in short_mha's fp32 kernel fails the
+             run.
 2. kernels — hold each of the six kernels (short_mha, int8_matmul, the tiled
              flash forward, dq and dk/dv, and w8a8_matmul) against its plain
              PyTorch version on the card at the main paths' shapes, and time
              kernel, plain version, the library yardstick and the bound
              (int8_matmul also against cuBLAS on a pre-converted weight);
              int8_matmul and w8a8_matmul repeat their bits at every case;
-             short_mha's gradient (the mha recompute) against mha.
+             short_mha's gradient (the mha recompute) against mha. The two
+             first-design fp32 instances off every path, int8_matmul with
+             fp32 x (M=256, K=N=4096) and the fp32 flash forward (B=1,
+             S=1024, H=32, D=128, causal), are timed beside their bounds,
+             plain versions and library calls, and their launches after this
+             phase are counted.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -53,7 +59,8 @@ Phases, each printing lines of its own:
              EVA-ViT-g through the fp32 short_mha kernel, Q-Former with its
              text pathway, batch 16, 3 steps, saved), then stage 2 from that
              checkpoint with the random CLIP-ViT-H targets computed inline
-             (2 steps); short_mha's fp32 launch at that shape timed.
+             (2 steps); short_mha's fp32 launch at that shape timed, with
+             the fast epilogue the path runs and the exact one.
 11. eval   — 11a (after phase 8, on its objects): reconstruction FID and
              IS of the de-tokenizer's pixels (the 8 images encoded, decoded
              to 768x768, Inception-v3 pool3 against the originals; IS over
@@ -175,9 +182,10 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 
 # --------------------------------------------------------------- phase 1
 
-# the tensor-core kernels of rows 1-6, by their functions' names (row 2 also
-# its split-K reduction)
+# the redesigned kernels of rows 1-6, by their functions' names (row 2 also
+# its split-K reduction; row 1 its fp32 instance on the FMA units apart)
 PTXAS_KERNELS = {"short_mha": ("short_mha_bf16_kernel",),
+                 "short_mha_f32": ("short_mha_f32_kernel",),
                  "flash_fwd": ("flash_fwd_bf16_kernel",),
                  "flash_bwd_dq": ("flash_bwd_dq_bf16_kernel",),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",),
@@ -430,6 +438,10 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
         bytes_total += serve * nbytes
         ops_total += serve * flops
         bf16 = dtype == torch.bfloat16
+        if not bf16 and (M, K, N) == (256, 4096, 4096):
+            fp32_x = dict(shape=dict(M=M, K=K, N=N, dtype="float32"), ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=bms,
+                          bound_by=by, max_abs_err=err)
         plan = int8_plan(M, N, K) if bf16 else None
         main = built.get("int8_mm_bf16", {}) if bf16 else {}
         emit("kernels", kernel="int8_matmul", **label, plan=plan,
@@ -453,6 +465,8 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     record.update(bound_ms=bms, bound_by=by, max_abs_err=worst)
     emit("kernels", kernel="int8_matmul", summary="mean per launch over one "
          "8B prefill at M = 256 (phase 3, 225 launches)", card=name, **record)
+    # the fp32-x instance (int8_mm_f32, its first design), on no path
+    record["fp32_x"] = fp32_x
     return {"int8_matmul": record}
 
 
@@ -597,6 +611,33 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                  "backward, dq+dk+dv in one call")
             del qt, kt, vt, gt, sdpa
 
+    # the fp32 forward (its first design, on no path) at the training layer's
+    # shape, B=1: against its plain version, timed beside SDPA in fp32
+    B, S, H, D = 1, 1024, 32, 128
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               for _ in range(3))
+    out, _ = TF.flash_fwd(q, k, v, True, D ** -0.5)
+    want, _ = TF.flash_fwd_plain(q, k, v, True, D ** -0.5)
+    err = (out - want).abs().max().item()
+    if not err <= FLASH_FWD_TOL[torch.float32]:
+        raise AssertionError(f"flash_fwd fp32 B=1: max_abs_err {err}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = B * H * _pairs(S, S, True, 0)
+    bms, by = bound_ms(4 * B * S * H * D * 4 + B * H * S * 4, 2 * 2 * D * pairs,
+                       FP32_FLOPS)
+    fp32 = dict(shape=dict(B=B, S=S, H=H, D=D, causal=True, dtype="float32"),
+                ms=time_ms(lambda: TF.flash_fwd(q, k, v, True, D ** -0.5), 3,
+                           flush),
+                plain_ms=time_ms(lambda: TF.flash_fwd_plain(q, k, v, True,
+                                                            D ** -0.5), 2, flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), 3, flush),
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+    emit("kernels", kernel="flash_fwd", what="the fp32 forward at B=1",
+         library="scaled_dot_product_attention(is_causal=True), fp32",
+         card=name, **fp32)
+    del q, k, v, qt, kt, vt, out, want
+
     # GQA through the dispatcher (8 query heads over 2 kv heads, repeated
     # outside the kernel) against the plain mha path, fp32: 2e-4, the bound
     # of seed_tpu's own flash tests
@@ -613,6 +654,7 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
          "flash_attention vs mha, fp32", max_abs_err=err, tol=2e-4, card=name)
     for kern in record:
         record[kern]["max_abs_err"] = worst[kern]
+    record["flash_fwd"]["fp32"] = fp32
     return record
 
 
@@ -1980,7 +2022,8 @@ def phase_train_tokenizer(name: str, flush: torch.Tensor, tmp: Path):
     torch.cuda.empty_cache()
 
     # row 1's fp32 instance at the stage-1 step's shape: the fast epilogue
-    # (D = 88: the ones column), 2e-5 against its plain version
+    # (D = 88: the ones column), 2e-5 against its plain version; the exact
+    # epilogue timed beside it
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     B, S, H, D = 16, 257, 16, 88
     q, k, v = _qkv_views(gen, B, S, H, D, torch.float32)
@@ -1994,6 +2037,8 @@ def phase_train_tokenizer(name: str, flush: torch.Tensor, tmp: Path):
     fp32 = dict(shape=dict(B=B, S=S, H=H, D=D, dtype="float32", exact=False),
                 ms=time_ms(lambda: short_mha(q, k, v, D ** -0.5, False),
                            flush=flush),
+                exact_ms=time_ms(lambda: short_mha(q, k, v, D ** -0.5, True),
+                                 flush=flush),
                 plain_ms=time_ms(lambda: short_mha_plain(q, k, v, D ** -0.5,
                                                          False), flush=flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -2660,9 +2705,10 @@ def _pil_mean_diff(path: str, batch) -> list:
 
 
 def redesigned_smem_bytes() -> dict:
-    """Dynamic shared memory of one block of the tensor-core kernels at the
-    main paths' shapes (head dims 88 and 128; the bf16 int8 matmul; the
-    W8A8 encode's M = 2056), as their launchers ask."""
+    """Dynamic shared memory of one block of the redesigned kernels at the
+    main paths' shapes (head dims 88 and 128; short_mha's fp32 kernel at the
+    tokenizer training's S = 257; the bf16 int8 matmul; the W8A8 encode's
+    M = 2056), as their launchers ask."""
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.ops import int8_matmul as TI
     from seed_tpu_torch.ops import kernels
@@ -2671,6 +2717,7 @@ def redesigned_smem_bytes() -> dict:
     int8 = kernels.load("int8_matmul", TI._SIGNATURES)
     w8a8 = kernels.load("w8a8_matmul", TI._W8A8_SIGNATURES)
     return {"short_mha": short.seed_short_mha_smem_bytes(257, 88, 1),
+            "short_mha_f32": short.seed_short_mha_f32_plan(257, 257, 88, 1),
             **{k: flash.seed_flash_smem_bytes(i, 1, 128) for i, k in
                enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))},
             "int8_matmul": int8.seed_int8_matmul_smem_bytes(),
@@ -2698,6 +2745,10 @@ def main() -> None:
     record.update(phase_flash_kernels(name, flush))
     record.update(phase_w8a8_kernel(name, flush, usage))
     del flush
+    from seed_tpu_torch.ops import flash_attention as TF
+    # the first-design fp32 instances of rows 2 and 3: launches from here on
+    int8_matmul.launches_f32 = 0
+    TF.flash_fwd.launches_f32 = 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params32 = ST.init_seed_tokenizer(gen, ST.SEED_TOKENIZER, torch.float32)
@@ -2814,8 +2865,9 @@ def main() -> None:
                     bound_by=record[k]["bound_by"],
                     library_ms=record[k]["library_ms"])
                for k, (source, replaces) in sources.items()]
-    # nvcc's registers and spills of each tensor-core kernel at the main
-    # path's instance (short_mha: padded head dim 96, the exact epilogue; the
+    # nvcc's registers and spills of each redesigned kernel at the main
+    # path's instance (short_mha: padded head dim 96, the exact epilogue, and
+    # its fp32 kernel at 96; the
     # flash kernels: 128; row 2: the bf16 kernel; row 6: the 128 x 128 tile,
     # bf16 out), at every other instance, and its shared memory
     main_dp = {"short_mha": "96/0", "flash_fwd": "128", "flash_bwd_dq": "128",
@@ -2828,7 +2880,22 @@ def main() -> None:
         if k == "int8_matmul":
             entry["gemm_ms"] = record[k]["gemm_ms"]
         if k == "short_mha":      # the tokenizer training's fp32 instance
+            f32 = usage.get("short_mha_f32", {})
             entry["fp32_train_tokenizer"] = fp32_stage1
+            entry["fp32_kernel"] = dict(
+                name="short_mha_f32_kernel",
+                registers=f32.get("96", {}).get("registers"),
+                registers_by_instance={key: u.get("registers")
+                                       for key, u in sorted(f32.items())},
+                spill_bytes=(sum(spill_bytes(u) for u in f32.values())
+                             if f32 else None),
+                smem_bytes=smem["short_mha_f32"])
+        if k == "int8_matmul":    # int8_mm_f32: fp32 x, on no path
+            entry["fp32_x"] = dict(record[k]["fp32_x"],
+                                   launches=int8_matmul.launches_f32)
+        if k == "flash_fwd":      # the fp32 forward, on no path
+            entry["fp32"] = dict(record[k]["fp32"],
+                                 launches=TF.flash_fwd.launches_f32)
         entry.update(
             ms_host_included=record[k].get("ms_host_included"),
             registers=per_dp.get(main_dp[k], {}).get("registers"),

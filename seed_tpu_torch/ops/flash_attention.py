@@ -53,11 +53,80 @@ _SIGNATURES = {
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p]),
     "seed_short_mha_smem_bytes": [ctypes.c_int] * 3,
+    "seed_short_mha_f32_plan": [ctypes.c_int] * 4,
 }
+
+# the fp32 kernel's tiles (csrc/short_mha.cu kF32*): rows come in groups of
+# 16, a tile takes at most 4 groups; a two-stage ring of K slabs (144 keys x
+# 16 columns) or V slabs (32 keys x the padded head dim)
+F32_GROUP, F32_MAX_GROUPS = 16, 4
+F32_K_STAGE_FLOATS, F32_V_KEYS = 144 * 16, 32
 
 
 def _lib():
     return kernels.load("short_mha", _SIGNATURES)
+
+
+def _padded_head_dim(head_dim: int) -> int:
+    """The head dims the kernels are built for (``sm90::padded_head_dim``)."""
+    return next((d for d in (32, 64, 96, 128, 192) if head_dim <= d), 256)
+
+
+def _f32_smem_bytes(groups: int, sk: int, head_dim: int) -> int:
+    """``f32_smem_bytes``: the two ring stages, then per row Q (the head
+    dim rounded up to 8, plus 4), the scores (Sk rounded up to 4, plus 4
+    where that is a multiple of 8) and the row sum."""
+    stage = max(F32_K_STAGE_FLOATS, F32_V_KEYS * _padded_head_dim(head_dim))
+    ld_q = -(-head_dim // 8) * 8 + 4
+    ld_s = -(-sk // 4) * 4
+    ld_s += 4 if ld_s % 8 == 0 else 0
+    return 4 * (2 * stage + F32_GROUP * groups * (ld_q + ld_s + 1))
+
+
+def short_mha_f32_plan(sq: int, sk: int, head_dim: int) -> Tuple[int, int]:
+    """(rows of the largest tile, its shared memory in bytes) of the fp32
+    kernel (``f32_groups_per_tile`` in csrc/short_mha.cu): the most row
+    groups of 16, up to 4, whose shared memory fits a block (one when none
+    does: the wrapper then refuses the call), and no more than Sq has."""
+    groups = F32_MAX_GROUPS
+    while groups > 1 and _f32_smem_bytes(groups, sk, head_dim) > SMEM_LIMIT:
+        groups -= 1
+    groups = min(groups, -(-sq // F32_GROUP))
+    return F32_GROUP * groups, _f32_smem_bytes(groups, sk, head_dim)
+
+
+def short_mha_f32_tiles(sq: int, rows: int) -> list:
+    """(first row, rows) of each tile the fp32 kernel launches: the
+    ceil(Sq / 16) row groups dealt out over ceil(groups / (rows / 16))
+    tiles, the first ones taking one group more where they do not divide."""
+    groups, per = -(-sq // F32_GROUP), rows // F32_GROUP
+    n = -(-groups // per)
+    base, extra = divmod(groups, n)
+    tiles, g = [], 0
+    for t in range(n):
+        take = base + (t < extra)
+        tiles.append((F32_GROUP * g, min(F32_GROUP * take, sq - F32_GROUP * g)))
+        g += take
+    return tiles
+
+
+_F32_PLANS_CHECKED = set()
+
+
+def _check_f32_plan(lib, sq: int, sk: int, head_dim: int) -> None:
+    """Raise if the library's fp32 plan differs from ``short_mha_f32_plan``
+    at this shape (once per shape and loaded library)."""
+    key = (lib, sq, sk, head_dim)
+    if key in _F32_PLANS_CHECKED:
+        return
+    rows, smem = short_mha_f32_plan(sq, sk, head_dim)
+    tiles = len(short_mha_f32_tiles(sq, rows))
+    got = tuple(lib.seed_short_mha_f32_plan(sq, sk, head_dim, i) for i in range(3))
+    if got != (rows, smem, tiles):
+        raise RuntimeError(f"short_mha: the fp32 kernel's plan {got} differs "
+                           f"from short_mha_f32_plan's {(rows, smem, tiles)}; "
+                           "the mirror is stale")
+    _F32_PLANS_CHECKED.add(key)
 
 
 def _mode(exact: bool, head_dim: int) -> int:
@@ -67,11 +136,12 @@ def _mode(exact: bool, head_dim: int) -> int:
 
 
 def _vec(q: torch.Tensor, staged) -> int:
-    """1 when a bf16 kernel may stage 8 elements (16 bytes) at a time: the
-    head dim, every row, batch and head stride and every base address are
-    multiples of 8 elements."""
-    return int(q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
-               and all(s % 8 == 0 for t in staged for s in t.stride()[:3])
+    """1 when a kernel may stage 16 bytes (8 bf16 or 4 fp32 elements) at a
+    time: the head dim, every row, batch and head stride and every base
+    address are multiples of 16 bytes."""
+    n = 16 // q.element_size()
+    return int(q.dtype in (torch.bfloat16, torch.float32) and q.shape[-1] % n == 0
+               and all(s % n == 0 for t in staged for s in t.stride()[:3])
                and all(t.data_ptr() % 16 == 0 for t in staged))
 
 
@@ -128,6 +198,8 @@ def _short_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lib.seed_short_mha_smem_bytes(Sk, D, _DTYPES[q.dtype]) > SMEM_LIMIT:
         raise ValueError(f"short_mha: Sk={Sk}, D={D} needs more shared memory "
                          "than a block has")
+    if q.dtype == torch.float32:
+        _check_f32_plan(lib, Sq, Sk, D)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -171,7 +243,8 @@ def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`short_mha_plain`; CUDA tensors launch the
     kernel of csrc/short_mha.cu (bf16: tensor cores, recomputed scores per
-    pass; fp32: FMA units) or raise."""
+    pass; fp32: register-tiled products on the FMA units, tiles by
+    :func:`short_mha_f32_plan`) or raise."""
     return _ShortMHA.apply(q, k, v, sm_scale, exact)
 
 
@@ -456,10 +529,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             int(causal), int(q_offset), vec, _DTYPES[q.dtype], stream)
     kernels.check(err, "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.launches_f32 += q.dtype == torch.float32
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_f32 = 0       # of them, the fp32 forward kernel
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,

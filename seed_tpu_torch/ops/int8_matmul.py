@@ -138,10 +138,12 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                                    stream)
     kernels.check(err, "int8_matmul")
     int8_matmul.launches += 1
+    int8_matmul.launches_f32 += x.dtype == torch.float32
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_f32 = 0     # of them, the fp32-x kernel (int8_mm_f32)
 
 
 def _pick_block(dim: int, prefer: int) -> Optional[int]:

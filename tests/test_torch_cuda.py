@@ -59,6 +59,48 @@ def test_short_mha_kernel_matches_plain(gen, dtype, exact, D, S):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+# fp32 only (Sq, Sk, D, layout): Sq that the 16-row groups do not divide
+# (65: a 3-group and a 2-group tile; 257: 4 + 4 + 3 + 3 + 3 groups), one
+# row, Sq != Sk both ways, D below one 32-column slab, odd D (4-byte
+# staging and stores), D = 160 (a zero slab of the 192 instance); layout
+# "fused": q/k/v split from one [B, S, 3 H D] tensor (16-byte staging where
+# D allows), "offset": views one element past an aligned base (4-byte
+# staging at any D)
+F32_TILE_CASES = [(65, 65, 88, "fused"), (257, 257, 88, "offset"),
+                  (1, 257, 88, "fused"), (100, 300, 64, "fused"),
+                  (300, 100, 64, "offset"), (40, 40, 8, "fused"),
+                  (77, 77, 33, "fused"), (130, 130, 160, "fused"),
+                  (33, 1024, 256, "offset")]
+
+
+def _f32_views(gen, B, Sq, Sk, H, D, layout):
+    if layout == "fused":
+        q = torch.randn(B, Sq, 3 * H * D, generator=gen, device="cuda")
+        k = torch.randn(B, Sk, 3 * H * D, generator=gen, device="cuda")
+        return (q[..., :H * D].reshape(B, Sq, H, D),
+                k[..., H * D:2 * H * D].reshape(B, Sk, H, D),
+                k[..., 2 * H * D:].reshape(B, Sk, H, D))
+    flat = lambda S: torch.randn(B * S * H * D + 1, generator=gen, device="cuda")
+    return tuple(flat(S)[1:].view(B, S, H, D) for S in (Sq, Sk, Sk))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("Sq,Sk,D,layout", F32_TILE_CASES)
+def test_short_mha_fp32_tiles_and_staging(gen, exact, Sq, Sk, D, layout):
+    """The fp32 kernel against its plain version, 2e-5 (sum order), at
+    tiles that do not divide Sq and through both staging paths; the launch
+    follows short_mha_f32_plan, which the wrapper checked against the
+    library."""
+    q, k, v = _f32_views(gen, 2, Sq, Sk, 3, D, layout)
+    assert TF._vec(q, (q, k, v)) == int(layout == "fused" and D % 4 == 0)
+    before = short_mha.launches
+    got = short_mha(q, k, v, D ** -0.5, exact)
+    assert short_mha.launches == before + 1
+    want = short_mha_plain(q, k, v, D ** -0.5, exact)
+    assert got.shape == (2, Sq, 3, D) and got.is_contiguous()
+    assert (got - want).abs().max().item() <= 2e-5
+
+
 # (M, K, N): a narrow product at decode, prefill and ragged M; the four 8B
 # prefill shapes at M = 256 (the plan splits K at three of them) and
 # 4096 x 4096 at M = 512 (the scheduler's bucket); one K step of 128
@@ -406,6 +448,36 @@ def test_bf16_kernels_launch_at_the_edge_shapes(gen, kernel, S, D):
     assert fn.launches == before + 1
     for out in (outs if isinstance(outs, tuple) else (outs,)):
         assert out.shape == q.shape and out.isfinite().all()
+
+
+def test_fp32_short_mha_repeats_bit_for_bit(gen):
+    """No atomics and no split over keys in the fp32 kernel either: two
+    calls at B=4 S=257 H=16 D=88 give the same bits, exact and fast."""
+    qkv = torch.randn(4, 257, 3 * 16 * 88, generator=gen, device="cuda")
+    q, k, v = (t.reshape(4, 257, 16, 88) for t in qkv.split(16 * 88, dim=-1))
+    run = lambda: (short_mha(q, k, v, 88 ** -0.5, True),
+                   short_mha(q, k, v, 88 ** -0.5, False))
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,D", [(1024, 256), (1024, 88)])
+@pytest.mark.parametrize("exact", [True, False])
+def test_fp32_short_mha_launches_at_the_edge_shapes(gen, S, D, exact):
+    """The longest sequence the dispatcher routes here at the widest and
+    the ViT's head dim, fp32: one launch (the plan takes fewer rows a tile
+    where 64 do not fit), finite, within 2e-5 of the plain version."""
+    q, k, v = _flash_inputs(gen, S, S, 2, D, torch.float32, B=1)
+    assert TF.short_mha_f32_plan(S, S, D)[1] <= TF.SMEM_LIMIT
+    before = short_mha.launches
+    out = short_mha(q, k, v, D ** -0.5, exact)
+    torch.cuda.synchronize()
+    assert short_mha.launches == before + 1
+    assert out.shape == q.shape and out.isfinite().all()
+    want = short_mha_plain(q, k, v, D ** -0.5, exact)
+    assert (out - want).abs().max().item() <= 2e-5
 
 
 # ----------------------- the unCLIP de-tokenizer (no kernel) -----------------
