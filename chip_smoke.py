@@ -14,12 +14,12 @@ Phases, each printing lines of its own:
              kernel, plain version, the library yardstick and the bound
              (int8_matmul also against cuBLAS on a pre-converted weight);
              int8_matmul and w8a8_matmul repeat their bits at every case;
-             short_mha's gradient (the mha recompute) against mha. The two
+             short_mha's gradient (the mha recompute) against mha. The
              first-design fp32 instances off every path, int8_matmul with
-             fp32 x (M=256, K=N=4096) and the fp32 flash forward (B=1,
-             S=1024, H=32, D=128, causal), are timed beside their bounds,
-             plain versions and library calls, and their launches after this
-             phase are counted.
+             fp32 x (M=256, K=N=4096) and the fp32 flash forward, dq and
+             dk/dv (B=1, S=1024, H=32, D=128, causal), are timed beside their
+             bounds, plain versions and library calls, and their launches
+             after this phase are counted.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -89,13 +89,24 @@ Phases, each printing lines of its own:
              process, the shards read back into a caption example. Only one
              card: NCCL does not put two ranks on one GPU, so the multi-rank
              semantics are held on the CPU (tests/test_torch_parallel*.py).
+13. scripts — the five command lines of seed_tpu_torch/scripts/ in process
+             through their main(): seed_llama_inference --model 8b (bf16,
+             32 layers, the full SEED tokenizer, the three prompts sampled,
+             64 new tokens each, then 1 for the prefill's seconds) on a JPEG
+             written under build/; seed_tokenizer_inference with a seeded
+             bf16 SD2.1 unCLIP checkpoint it writes (a 768x768 JPEG, ids
+             against SeedLlamaInterface.encode_image of the same bytes);
+             merge_lora at the 8B's width cut to 4 layers (MERGE_LAYERS)
+             against merge_lora_weights in memory; acceptance --synthetic
+             --device cuda (exit 0); check_full_geometry for the 8B and 14B,
+             LoRA and --full, at --tp 2 --devices=8.
 
 Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
 phase 9 (train_llm), phase 10 (train_tokenizer), phases 11a-11b (eval) and
 phase 12a (parallel) are the main paths: the launch counters of a path's kernels are set to 0
-just before it and read just after. Phase 8 launches none of the six kernels
-(its lines show the counts) and is counted on no path; nor are 11c and 11d
-(11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
+just before it and read just after. Phases 8 and 13 launch none of the six
+kernels (their lines show the counts) and are counted on no path; nor are 11c
+and 11d (11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
 one before that the card.
@@ -617,7 +628,7 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                for _ in range(3))
     out, _ = TF.flash_fwd(q, k, v, True, D ** -0.5)
-    want, _ = TF.flash_fwd_plain(q, k, v, True, D ** -0.5)
+    want, want_lse = TF.flash_fwd_plain(q, k, v, True, D ** -0.5)
     err = (out - want).abs().max().item()
     if not err <= FLASH_FWD_TOL[torch.float32]:
         raise AssertionError(f"flash_fwd fp32 B=1: max_abs_err {err}")
@@ -636,7 +647,48 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     emit("kernels", kernel="flash_fwd", what="the fp32 forward at B=1",
          library="scaled_dot_product_attention(is_causal=True), fp32",
          card=name, **fp32)
-    del q, k, v, qt, kt, vt, out, want
+    del out, qt, kt, vt
+
+    # the fp32 dq and dk/dv kernels (their first design, on no path) at the
+    # same shape: against their plain versions, timed beside SDPA's fp32
+    # backward (dq, dk and dv in one call); bounds as the bf16 rows count
+    # them, against the fp32 peak
+    dout = torch.randn(B, S, H, D, generator=gen, device="cuda")
+    delta = (dout * want).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, dout, want_lse, delta, True, D ** -0.5)
+    atol, rtol = FLASH_BWD_TOL[torch.float32]
+    got = dict(flash_bwd_dq=(TF.flash_bwd_dq(*args),),
+               flash_bwd_dkv=TF.flash_bwd_dkv(*args))
+    ref = dict(flash_bwd_dq=(TF.flash_bwd_dq_plain(*args),),
+               flash_bwd_dkv=TF.flash_bwd_dkv_plain(*args))
+    qt, kt, vt, gt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v, dout))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa, (qt, kt, vt), gt, retain_graph=True), 3, flush)
+    tensor, rowvec = B * S * H * D * 4, B * H * S * 4
+    work = {"flash_bwd_dq": (3 * 2 * D * pairs, 5 * tensor + 2 * rowvec,
+                             TF.flash_bwd_dq, TF.flash_bwd_dq_plain),
+            "flash_bwd_dkv": (4 * 2 * D * pairs, 6 * tensor + 2 * rowvec,
+                              TF.flash_bwd_dkv, TF.flash_bwd_dkv_plain)}
+    fp32_bwd = {}
+    for kern, (flops, nbytes, fn, plain_fn) in work.items():
+        e = max((g - r).abs().max().item() for g, r in zip(got[kern],
+                                                           ref[kern]))
+        top = max(r.abs().max().item() for r in ref[kern])
+        if not e <= atol + rtol * top:
+            raise AssertionError(f"{kern} fp32 B=1: max_abs_err {e}")
+        bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        fp32_bwd[kern] = dict(
+            shape=dict(B=B, S=S, H=H, D=D, causal=True, dtype="float32"),
+            ms=time_ms(lambda: fn(*args), 3, flush),
+            plain_ms=time_ms(lambda: plain_fn(*args), 2, flush),
+            library_ms=lib_bwd, bound_ms=bms, bound_by=by, max_abs_err=e)
+        emit("kernels", kernel=kern, what="the fp32 kernel at B=1",
+             library="scaled_dot_product_attention(is_causal=True) backward, "
+             "fp32, dq+dk+dv in one call", flops=flops, bytes=nbytes,
+             card=name, **fp32_bwd[kern])
+    del q, k, v, dout, qt, kt, vt, gt, sdpa, want, got, ref
 
     # GQA through the dispatcher (8 query heads over 2 kv heads, repeated
     # outside the kernel) against the plain mha path, fp32: 2e-4, the bound
@@ -655,6 +707,8 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     for kern in record:
         record[kern]["max_abs_err"] = worst[kern]
     record["flash_fwd"]["fp32"] = fp32
+    for kern, timing in fp32_bwd.items():
+        record[kern]["fp32"] = timing
     return record
 
 
@@ -2704,6 +2758,270 @@ def _pil_mean_diff(path: str, batch) -> list:
     return out
 
 
+# -------------------------------------------------------------- phase 13
+
+# The merge runs at the 8B's width with its depth cut to 4 of 32 layers: the
+# merge is the same per layer, and the full depth would write and read three
+# 13.5 GB trees (base, merged, the merged read back) for nothing it does
+# differently.
+MERGE_LAYERS = 4
+
+
+def write_jpeg(path: Path, seed: int, h: int = 300, w: int = 400) -> None:
+    """A seeded RGB JPEG: smooth colour ramps with noise on top."""
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramps = np.stack([xx / w, yy / h, (xx + yy) / (h + w)], -1) * 200
+    img = np.clip(ramps + rs.randint(0, 56, (h, w, 3)), 0, 255)
+    Image.fromarray(img.astype(np.uint8)).save(path, quality=90)
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _blocks(ids) -> list:
+    """The well-formed image blocks of a generated stream, parsed apart from
+    split_output: BOI, 32 codes in range, EOI."""
+    from seed_tpu_torch import (BOI_TOKEN_ID, EOI_TOKEN_ID, IMAGE_ID_SHIFT,
+                                NUM_IMG_CODES, NUM_IMG_TOKENS)
+    out, i = [], 0
+    while i < len(ids):
+        if ids[i] == BOI_TOKEN_ID and EOI_TOKEN_ID in ids[i + 1:]:
+            j = ids.index(EOI_TOKEN_ID, i + 1)
+            codes = [t - IMAGE_ID_SHIFT for t in ids[i + 1:j]]
+            if (len(codes) == NUM_IMG_TOKENS
+                    and all(0 <= c < NUM_IMG_CODES for c in codes)):
+                out.append(codes)
+                i = j + 1
+                continue
+        i += 1
+    return out
+
+
+def scripts_llama(name: str, jpeg: Path) -> None:
+    """seed_llama_inference --model 8b: SEED-LLaMA-8B bf16 at full width and
+    depth, the full SEED tokenizer, the three prompts sampled; then the same
+    with one new token, whose seconds are each prompt's prefill."""
+    from seed_tpu_torch import BOI_TOKEN_ID
+    from seed_tpu_torch.scripts import seed_llama_inference as SLI
+    argv = ["--model", "8b", "--image", str(jpeg)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = SLI.main(argv + ["--max-new-tokens", "64"])
+    total_s = time.perf_counter() - t0
+    peak = _peak_gib()
+    gc_collect()
+    first = SLI.main(argv + ["--max-new-tokens", "1"])
+    gc_collect()
+    if [r["task"] for r in results] != [r["task"] for r in first]:
+        raise AssertionError("seed_llama_inference: the runs' tasks differ")
+    for r, r1 in zip(results, first):
+        ids = list(r["ids"])
+        images = [s for s in r["segments"] if s.kind == "image"]
+        blocks = _blocks(ids)
+        if r["forced"] and ids[0] != BOI_TOKEN_ID:
+            raise AssertionError(f"{r['task']}: the block was not forced "
+                                 f"({ids[:4]})")
+        if ([s.image_codes[0].tolist() for s in images] != blocks
+                or any(s.image_codes.shape != (1, 32) for s in images)):
+            raise AssertionError(f"{r['task']}: image segments "
+                                 f"{[s.image_codes.shape for s in images]} "
+                                 f"against {len(blocks)} well-formed blocks")
+        n = len(ids)
+        decode_s = r["seconds"] - r1["seconds"]
+        emit("scripts", what="python3 -m seed_tpu_torch.scripts."
+             "seed_llama_inference --model 8b --max-new-tokens 64 (bf16, 32 "
+             "layers, seeded weights, sampled top_p 0.5)", task=r["task"],
+             forced=r["forced"], tokens=n, seconds=r["seconds"],
+             prefill_seconds=r1["seconds"],
+             decode_tok_per_s=(n - 1) / decode_s if n > 1 else None,
+             well_formed_blocks=len(blocks), image_segments=len(images),
+             text_chars=sum(len(s.text or "") for s in r["segments"]),
+             card=name)
+    emit("scripts", what="seed_llama_inference --model 8b: the whole command "
+         "(seeded init of the 8B and the SEED tokenizer, encode, 3 prompts)",
+         seconds=total_s, peak_gib=peak, card=name)
+
+
+def scripts_tokenizer(name: str, jpeg: Path, tmp: Path) -> None:
+    """seed_tokenizer_inference with an SD2.1 unCLIP checkpoint written
+    here (seeded, bf16): ids, the 768x768 JPEG, and the ids against the
+    interface's encode of the same bytes in process."""
+    from PIL import Image
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    from seed_tpu_torch.models.unclip import SD21_UNCLIP, init_unclip
+    from seed_tpu_torch.ops.preprocess import preprocess
+    from seed_tpu_torch.scripts import seed_tokenizer_inference as STI
+    from seed_tpu_torch.scripts.seed_llama_inference import read_image
+    from seed_tpu_torch.serving.multimodal import SeedLlamaInterface
+    from seed_tpu_torch.utils.checkpoint import save_checkpoint
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    save_checkpoint(tmp / "unclip", init_unclip(gen, SD21_UNCLIP,
+                                                torch.bfloat16))
+    write_s = time.perf_counter() - t0
+    gc_collect()
+    out = tmp / "reconstruction.jpg"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = STI.main(["--image", str(jpeg), "--diffusion-ckpt",
+                    str(tmp / "unclip"), "--save", str(out)])
+    seconds = time.perf_counter() - t0
+    peak = _peak_gib()
+    back = np.asarray(Image.open(out))
+    side = SD21_UNCLIP.latent_size * SD21_UNCLIP.vae.upscale
+    if back.shape != (side, side, 3) or res["image"].shape != back.shape:
+        raise AssertionError(f"seed_tokenizer_inference: {out} reads back "
+                             f"as {back.shape}")
+    del res["embedding"]
+    gc_collect()
+    # the same bytes through the interface, in process
+    params = ST.init_seed_tokenizer(
+        torch.Generator(device="cuda").manual_seed(0), ST.SEED_TOKENIZER,
+        torch.bfloat16)
+    iface = SeedLlamaInterface(None, params, ST.SEED_TOKENIZER)
+    raw = read_image(str(jpeg), "cuda")
+    want = iface.encode_image(preprocess(raw, 224, torch.bfloat16))
+    if not np.array_equal(res["ids"], want):
+        raise AssertionError(f"seed_tokenizer_inference ids {res['ids']} != "
+                             f"SeedLlamaInterface.encode_image {want}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        STI.tokenize(params, raw, ST.SEED_TOKENIZER)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) / 5 * 1e3
+    emit("scripts", what="python3 -m seed_tpu_torch.scripts."
+         "seed_tokenizer_inference --diffusion-ckpt (SD2.1 unCLIP, seeded "
+         "bf16, 20 DDIM steps, guidance 10)", ids=res["ids"][0].tolist(),
+         ids_equal_encode_image=True,
+         encode_and_embedding_ms=encode_ms,
+         seconds_to_jpeg=seconds, unclip_checkpoint_write_seconds=write_s,
+         jpeg=list(back.shape), peak_gib=peak, card=name)
+    del params, iface
+
+
+def scripts_merge(name: str, tmp: Path) -> None:
+    """merge_lora on train_llm --lora's {"lora"} save and a bare base at the
+    8B's width, MERGE_LAYERS deep: the saved tree equals the merge in
+    memory, and the inputs are left as they were."""
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.scripts import merge_lora as ML
+    from seed_tpu_torch.train.lora import init_lora, merge_lora_weights
+    from seed_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from seed_tpu_torch.utils.tree import leaves, tree_map
+    cfg = dataclasses.replace(M.SEED_LLAMA_8B, layers=MERGE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    base = M.init_llama(gen, cfg, torch.bfloat16)
+    lora = init_lora(gen, base, r=16, alpha=32)
+    for ad in lora["adapters"].values():   # trained adapters: B is not zero
+        ad["b"].normal_(0.0, 0.02, generator=gen)
+    save_checkpoint(tmp / "base", base)
+    save_checkpoint(tmp / "lora", {"lora": lora})
+    copies = tree_map(torch.clone, {"base": base, "lora": lora})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ML.main(["--base", str(tmp / "base"), "--lora", str(tmp / "lora"),
+             "--output", str(tmp / "merged")])
+    seconds = time.perf_counter() - t0
+    want = merge_lora_weights(base, lora)
+    got = restore_checkpoint(tmp / "merged")
+    if not _same_bits(got, want):
+        raise AssertionError("merge_lora: the saved tree differs from "
+                             "merge_lora_weights in memory")
+    if not _same_bits(copies, {"base": base, "lora": lora}):
+        raise AssertionError("merge_lora: the merge changed its inputs")
+    changed = not torch.equal(got["layers"][0]["q_proj"]["kernel"],
+                              base["layers"][0]["q_proj"]["kernel"])
+    gib = sum(t.numel() * t.element_size() for t in leaves(base)) / 2 ** 30
+    emit("scripts", what="python3 -m seed_tpu_torch.scripts.merge_lora on a "
+         "train_llm --lora {'lora'} save and a bare base",
+         reduced=f"SEED-LLaMA-8B width, {MERGE_LAYERS} of 32 layers: the "
+         "merge is the same per layer, the full depth writes and reads three "
+         "13.5 GB trees for nothing it does differently",
+         seconds=seconds, tree_gib=gib, adapted_kernels=len(lora["adapters"]),
+         merged_equals_in_memory=True, inputs_bit_identical=True,
+         kernels_changed=changed, peak_gib=_peak_gib(), card=name)
+    del base, lora, copies, want, got
+
+
+def scripts_acceptance(name: str, tmp: Path) -> None:
+    """acceptance --synthetic on the card: exit 0, every stage's status."""
+    from seed_tpu_torch.scripts import acceptance as A
+    out = tmp / "acceptance"
+    t0 = time.perf_counter()
+    try:
+        A.main(["--synthetic", "--device", "cuda", "--out", str(out),
+                "--max-images", "2", "--max-new-tokens", "8",
+                "--diffusion-steps", "2"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    seconds = time.perf_counter() - t0
+    report = json.loads((out / "acceptance.json").read_text())
+    stages = {k: v["status"] for k, v in report["stages"].items()}
+    reference = Path(A.load_shims().REFERENCE_MODELS).is_dir()
+    if code != 0 or report["pass"] is not True:
+        raise AssertionError(f"acceptance --synthetic: exit {code}, {stages}")
+    if stages["tokenizer_parity"] != ("pass" if reference else "skipped"):
+        raise AssertionError(f"acceptance: tokenizer_parity "
+                             f"{report['stages']['tokenizer_parity']}")
+    emit("scripts", what="python3 -m seed_tpu_torch.scripts.acceptance "
+         "--synthetic --device cuda --max-images 2 --max-new-tokens 8 "
+         "--diffusion-steps 2", exit_code=code, stages=stages,
+         tokenizer_parity=report["stages"]["tokenizer_parity"],
+         seconds=seconds, card=name)
+
+
+def scripts_geometry(name: str) -> None:
+    """check_full_geometry for the 8B and 14B, LoRA and --full, at tp=2 x
+    fsdp=4."""
+    from seed_tpu_torch.scripts import check_full_geometry as CG
+    for model in ("8b", "14b"):
+        for full in (False, True):
+            g = CG.main(["--model", model, "--tp", "2", "--devices=8"]
+                        + (["--full"] if full else []))
+            if g["undivided"]:
+                raise AssertionError(f"geometry {model}: {g['undivided']}")
+            emit("scripts", what="python3 -m seed_tpu_torch.scripts."
+                 "check_full_geometry --tp 2 --devices=8", model=model,
+                 lora=not full, mesh=g["mesh"],
+                 gib_per_rank={k: v / 2 ** 30 for k, v in g["bytes"].items()},
+                 total_gib_per_rank=g["total_bytes"] / 2 ** 30,
+                 undivided=g["undivided"], card=name)
+
+
+def gc_collect() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_scripts(name: str, scratch: Path) -> None:
+    """The five command lines of seed_tpu_torch.scripts in process through
+    their main(); none of the six kernels is on their path."""
+    before = _launch_counts()
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        jpeg = tmp / "image.jpg"
+        write_jpeg(jpeg, SEED + 12)
+        scripts_llama(name, jpeg)
+        gc_collect()
+        scripts_tokenizer(name, jpeg, tmp)
+        gc_collect()
+        scripts_merge(name, tmp)
+        gc_collect()
+        scripts_acceptance(name, tmp)
+    scripts_geometry(name)
+    launched = _launched_since(before)
+    emit("launches", path="scripts", **launched, card=name)
+    if any(launched.values()):
+        raise AssertionError(f"the scripts launched a kernel: {launched}")
+
+
 def redesigned_smem_bytes() -> dict:
     """Dynamic shared memory of one block of the redesigned kernels at the
     main paths' shapes (head dims 88 and 128; short_mha's fp32 kernel at the
@@ -2748,7 +3066,8 @@ def main() -> None:
     from seed_tpu_torch.ops import flash_attention as TF
     # the first-design fp32 instances of rows 2 and 3: launches from here on
     int8_matmul.launches_f32 = 0
-    TF.flash_fwd.launches_f32 = 0
+    for fn in (TF.flash_fwd, TF.flash_bwd_dq, TF.flash_bwd_dkv):
+        fn.launches_f32 = 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params32 = ST.init_seed_tokenizer(gen, ST.SEED_TOKENIZER, torch.float32)
@@ -2843,6 +3162,8 @@ def main() -> None:
     for kernel, n in phase_parallel(name, phase9).items():
         launches[kernel] += n
     phase_extract_image_ids(name)
+    gc_collect()
+    phase_scripts(name, scratch)
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} was never launched on its main path")
@@ -2893,9 +3214,9 @@ def main() -> None:
         if k == "int8_matmul":    # int8_mm_f32: fp32 x, on no path
             entry["fp32_x"] = dict(record[k]["fp32_x"],
                                    launches=int8_matmul.launches_f32)
-        if k == "flash_fwd":      # the fp32 forward, on no path
+        if k.startswith("flash_"):     # the fp32 kernels, on no path
             entry["fp32"] = dict(record[k]["fp32"],
-                                 launches=TF.flash_fwd.launches_f32)
+                                 launches=getattr(TF, k).launches_f32)
         entry.update(
             ms_host_included=record[k].get("ms_host_included"),
             registers=per_dp.get(main_dp[k], {}).get("registers"),

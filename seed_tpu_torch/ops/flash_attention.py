@@ -560,10 +560,12 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
             stream)
     kernels.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_f32 += q.dtype == torch.float32
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_f32 = 0       # of them, the fp32 kernel
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
@@ -590,10 +592,12 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
             _DTYPES[q.dtype], stream)
     kernels.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_f32 += q.dtype == torch.float32
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_f32 = 0       # of them, the fp32 kernel
 
 
 class _TiledFlash(torch.autograd.Function):

@@ -193,15 +193,21 @@ class SeedLlamaInterface:
         return template.wrap(content, self.text)
 
     # ---- generation + splitting ----
-    def generate(self, parts: Sequence[Union[str, np.ndarray]],
-                 gen: Optional[GenerationConfig] = None, seed: int = 0,
-                 force_image: bool = False) -> List[Segment]:
+    def generate_ids(self, parts: Sequence[Union[str, np.ndarray]],
+                     gen: Optional[GenerationConfig] = None, seed: int = 0,
+                     force_image: bool = False) -> List[int]:
+        """The generated ids, before ``split_output``."""
         gen = gen or GenerationConfig(eos_token_id=self.text.eos_token_id)
         if force_image:
             gen = dataclasses.replace(gen, forced_first_token=BOI_TOKEN_ID)
         prompt = self.build_prompt(parts)
-        out = self.engine.generate([prompt], gen, seed=seed)[0]
-        return self.split_output(out)
+        return self.engine.generate([prompt], gen, seed=seed)[0]
+
+    def generate(self, parts: Sequence[Union[str, np.ndarray]],
+                 gen: Optional[GenerationConfig] = None, seed: int = 0,
+                 force_image: bool = False) -> List[Segment]:
+        return self.split_output(self.generate_ids(parts, gen, seed,
+                                                   force_image))
 
     def generate_from_string(self, text: str,
                              gen: Optional[GenerationConfig] = None,

@@ -38,9 +38,11 @@ def init_lora(gen: torch.Generator, params, r: int = 16, alpha: int = 32,
     for name, leaf in leaves_with_path(params):
         if pat.search(name) and leaf.dim() >= 2:
             *batch, d_in, d_out = leaf.shape
-            a = torch.randn((*batch, d_in, r), generator=gen,
-                            device=gen.device) * 0.02
             device = leaf.device
+            # a meta tree (sizing, no allocation) gets meta adapters
+            a = torch.randn((*batch, d_in, r), generator=gen,
+                            device="meta" if device.type == "meta"
+                            else gen.device) * 0.02
             adapters[name] = {
                 "a": a.to(device=device, dtype=dtype),
                 "b": torch.zeros((*batch, r, d_out), dtype=dtype, device=device),
