@@ -14,12 +14,15 @@ Phases, each printing lines of its own:
              kernel, plain version, the library yardstick and the bound
              (int8_matmul also against cuBLAS on a pre-converted weight);
              int8_matmul and w8a8_matmul repeat their bits at every case;
-             short_mha's gradient (the mha recompute) against mha. The
-             first-design fp32 instances off every path, int8_matmul with
-             fp32 x (M=256, K=N=4096) and the fp32 flash forward, dq and
-             dk/dv (B=1, S=1024, H=32, D=128, causal), are timed beside their
-             bounds, plain versions and library calls, and their launches
-             after this phase are counted.
+             short_mha's gradient (the mha recompute) against mha. The fp32
+             instances off every path, int8_matmul with fp32 x (M=256,
+             K=N=4096; first design) and the fp32 flash forward and dk/dv
+             (split TF32; dk/dv bit for bit over two calls) and dq (first
+             design) at B=1, S=1024, H=32, D=128, causal, are timed beside
+             their bounds, plain versions and library calls, and their
+             launches after this phase are counted; one fp32 autograd step
+             at SEED-LLaMA-8B's width cut to 2 layers through
+             train_llm.llm_loss launches all three against plain mha.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -136,6 +139,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12              # fp32 outside the tensor cores
+TF32_FLOPS = 495e12             # dense TF32 tensor-core peak
 INT8_OPS = 1979e12              # dense int8 tensor-core peak
 PEAK_FLOPS = {torch.bfloat16: BF16_FLOPS, torch.float32: FP32_FLOPS}
 SEED = 0
@@ -194,12 +198,15 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 # --------------------------------------------------------------- phase 1
 
 # the redesigned kernels of rows 1-6, by their functions' names (row 2 also
-# its split-K reduction; row 1 its fp32 instance on the FMA units apart)
+# its split-K reduction; row 1 its fp32 instance on the FMA units apart;
+# rows 3 and 5 their fp32 instances on split-TF32 products apart)
 PTXAS_KERNELS = {"short_mha": ("short_mha_bf16_kernel",),
                  "short_mha_f32": ("short_mha_f32_kernel",),
                  "flash_fwd": ("flash_fwd_bf16_kernel",),
+                 "flash_fwd_f32": ("flash_fwd_f32_kernel",),
                  "flash_bwd_dq": ("flash_bwd_dq_bf16_kernel",),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",),
+                 "flash_bwd_dkv_f32": ("flash_bwd_dkv_f32_kernel",),
                  "int8_matmul": ("int8_mm_bf16", "int8_mm_reduce"),
                  "w8a8_matmul": ("w8a8_mm",)}
 
@@ -484,11 +491,13 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
 # ------------------------------------------------- phase 2, kernel rows 3-5
 
 # Tolerances of the flash kernels against their plain versions (same tiles,
-# same rounding points). Forward: fp32 differs by the order of fp32 sums
-# (2e-5); bf16 by an output rounding that lands one ulp apart at |o| < 4
-# (2**-6); lse is fp32 either way (2e-5). Backward: sums of up to S products
-# of O(1) terms; fp32 1e-4 absolute; bf16 roundings of p and ds one ulp
-# apart, 2**-5 of the largest gradient.
+# same rounding points). Forward: fp32 differs by the order of fp32 sums and
+# by the split-TF32 products of the fp32 forward and dk/dv kernels (within
+# 3 * 2**-22 of |a b| a product: scores of O(1) move by about 1e-6), 2e-5;
+# bf16 by an output rounding that lands one ulp apart at |o| < 4 (2**-6);
+# lse is fp32 either way (2e-5). Backward: sums of up to S products of O(1)
+# terms; fp32 1e-4 absolute; bf16 roundings of p and ds one ulp apart, 2**-5
+# of the largest gradient.
 FLASH_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 FLASH_LSE_TOL = 2e-5
 FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2.0 ** -5)}
@@ -549,6 +558,13 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                 args = (q, k, v, dout, want_lse, delta, causal, scale)
                 dq = TF.flash_bwd_dq(*args)
                 dk, dv = TF.flash_bwd_dkv(*args)
+                if dtype == torch.float32:    # no atomics: the same bits
+                    again = TF.flash_bwd_dkv(*args)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(dk, again[0]) and torch.equal(dv, again[1])):
+                        raise AssertionError(f"flash_bwd_dkv {label}: two "
+                                             "calls differ")
+                    del again
                 want_dq = TF.flash_bwd_dq_plain(*args)
                 want_dk, want_dv = TF.flash_bwd_dkv_plain(*args)
                 torch.cuda.synchronize()
@@ -622,8 +638,10 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                  "backward, dq+dk+dv in one call")
             del qt, kt, vt, gt, sdpa
 
-    # the fp32 forward (its first design, on no path) at the training layer's
-    # shape, B=1: against its plain version, timed beside SDPA in fp32
+    # the fp32 forward (split TF32) at the training layer's shape, B=1:
+    # against its plain version, timed beside SDPA in fp32 (CUTLASS's
+    # memory-efficient kernel); bounds against the fp32 peak and, as three
+    # TF32 products, against the TF32 tensor-core peak
     B, S, H, D = 1, 1024, 32, 128
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                for _ in range(3))
@@ -634,38 +652,46 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
         raise AssertionError(f"flash_fwd fp32 B=1: max_abs_err {err}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = B * H * _pairs(S, S, True, 0)
-    bms, by = bound_ms(4 * B * S * H * D * 4 + B * H * S * 4, 2 * 2 * D * pairs,
-                       FP32_FLOPS)
+    nbytes = 4 * B * S * H * D * 4 + B * H * S * 4
+    bms, by = bound_ms(nbytes, 2 * 2 * D * pairs, FP32_FLOPS)
     fp32 = dict(shape=dict(B=B, S=S, H=H, D=D, causal=True, dtype="float32"),
-                ms=time_ms(lambda: TF.flash_fwd(q, k, v, True, D ** -0.5), 3,
+                ms=time_ms(lambda: TF.flash_fwd(q, k, v, True, D ** -0.5), 10,
                            flush),
                 plain_ms=time_ms(lambda: TF.flash_fwd_plain(q, k, v, True,
                                                             D ** -0.5), 2, flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), 3, flush),
-                bound_ms=bms, bound_by=by, max_abs_err=err)
+                    qt, kt, vt, is_causal=True), 10, flush),
+                bound_ms=bms, bound_by=by,
+                bound_tf32x3_ms=bound_ms(nbytes, 3 * 2 * 2 * D * pairs,
+                                         TF32_FLOPS)[0], max_abs_err=err)
     emit("kernels", kernel="flash_fwd", what="the fp32 forward at B=1",
          library="scaled_dot_product_attention(is_causal=True), fp32",
          card=name, **fp32)
     del out, qt, kt, vt
 
-    # the fp32 dq and dk/dv kernels (their first design, on no path) at the
-    # same shape: against their plain versions, timed beside SDPA's fp32
-    # backward (dq, dk and dv in one call); bounds as the bf16 rows count
-    # them, against the fp32 peak
+    # the fp32 dq (its first design) and dk/dv (split TF32) kernels at the
+    # same shape: against their plain versions, dk/dv also bit for bit over
+    # two calls, timed beside SDPA's fp32 backward (dq, dk and dv in one
+    # call); bounds as the bf16 rows count them, against the fp32 peak and
+    # (dk/dv) as three TF32 products
     dout = torch.randn(B, S, H, D, generator=gen, device="cuda")
     delta = (dout * want).sum(-1).permute(0, 2, 1).contiguous()
     args = (q, k, v, dout, want_lse, delta, True, D ** -0.5)
     atol, rtol = FLASH_BWD_TOL[torch.float32]
     got = dict(flash_bwd_dq=(TF.flash_bwd_dq(*args),),
                flash_bwd_dkv=TF.flash_bwd_dkv(*args))
+    again = TF.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got["flash_bwd_dkv"], again)):
+        raise AssertionError("flash_bwd_dkv fp32 B=1: two calls differ")
+    del again
     ref = dict(flash_bwd_dq=(TF.flash_bwd_dq_plain(*args),),
                flash_bwd_dkv=TF.flash_bwd_dkv_plain(*args))
     qt, kt, vt, gt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v, dout))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
-        sdpa, (qt, kt, vt), gt, retain_graph=True), 3, flush)
+        sdpa, (qt, kt, vt), gt, retain_graph=True), 10, flush)
     tensor, rowvec = B * S * H * D * 4, B * H * S * 4
     work = {"flash_bwd_dq": (3 * 2 * D * pairs, 5 * tensor + 2 * rowvec,
                              TF.flash_bwd_dq, TF.flash_bwd_dq_plain),
@@ -681,9 +707,12 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
         bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
         fp32_bwd[kern] = dict(
             shape=dict(B=B, S=S, H=H, D=D, causal=True, dtype="float32"),
-            ms=time_ms(lambda: fn(*args), 3, flush),
+            ms=time_ms(lambda: fn(*args), 10, flush),
             plain_ms=time_ms(lambda: plain_fn(*args), 2, flush),
             library_ms=lib_bwd, bound_ms=bms, bound_by=by, max_abs_err=e)
+        if kern == "flash_bwd_dkv":
+            fp32_bwd[kern]["bound_tf32x3_ms"] = bound_ms(nbytes, 3 * flops,
+                                                         TF32_FLOPS)[0]
         emit("kernels", kernel=kern, what="the fp32 kernel at B=1",
              library="scaled_dot_product_attention(is_causal=True) backward, "
              "fp32, dq+dk+dv in one call", flops=flops, bytes=nbytes,
@@ -709,6 +738,64 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     record["flash_fwd"]["fp32"] = fp32
     for kern, timing in fp32_bwd.items():
         record[kern]["fp32"] = timing
+    record["flash_fwd"]["fp32"]["autograd_step"] = flash_f32_step(name)
+    return record
+
+
+# The fp32 kernels under autograd on a real step: SEED-LLaMA-8B's width (dim
+# 4096, 32 heads of 128) cut to F32_STEP_LAYERS layers, an fp32 base and
+# LoRA r=16, one micro-batch of 4 x 1024 tokens through train_llm.llm_loss
+# with use_flash (the fp32 forward, dq and dk/dv kernels) and without (plain
+# mha). The losses agree within 1e-4 relative and the adapters' gradients
+# within 1e-3 of the largest (fp32 attention rounding through two layers'
+# backward).
+F32_STEP_LAYERS = 2
+
+
+def flash_f32_step(name: str) -> dict:
+    from seed_tpu_torch.models import llama as M
+    from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.train import init_lora
+    from seed_tpu_torch.train.train_llm import llm_loss
+    from seed_tpu_torch.utils.tree import leaves, tree_map
+    cfg = dataclasses.replace(M.SEED_LLAMA_8B, layers=F32_STEP_LAYERS)
+    base = M.init_llama(torch.Generator(device="cuda").manual_seed(SEED + 13),
+                        cfg, torch.float32)
+    lora = init_lora(torch.Generator(device="cuda").manual_seed(SEED + 14),
+                     base, r=16, alpha=32)
+    batch = {k: torch.from_numpy(v[0]).cuda()
+             for k, v in next(_train_batches(1, cfg.vocab_size, SEED + 15)).items()}
+    kernels = (TF.flash_fwd, TF.flash_bwd_dq, TF.flash_bwd_dkv)
+    out = {}
+    for use_flash in (True, False):
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(), lora)
+        trained = [t for t in leaves(live) if t.dim() >= 2]   # A and B
+        before = [fn.launches_f32 for fn in kernels]
+        loss = llm_loss(cfg, base, use_flash)({"lora": live}, batch, None)
+        grads = torch.autograd.grad(loss, trained)
+        out[use_flash] = dict(
+            loss=loss.item(), grads=grads,
+            launches={fn.__name__: fn.launches_f32 - b
+                      for fn, b in zip(kernels, before)})
+    flash, plain = out[True], out[False]
+    rel = abs(flash["loss"] - plain["loss"]) / abs(plain["loss"])
+    top = max(g.abs().max().item() for g in plain["grads"])
+    grad_err = max((a - b).abs().max().item()
+                   for a, b in zip(flash["grads"], plain["grads"]))
+    record = dict(shape=dict(layers=cfg.layers, dim=cfg.dim, heads=cfg.heads,
+                             B=TRAIN_MICRO, S=TRAIN_SEQ, dtype="float32"),
+                  loss=flash["loss"], loss_plain=plain["loss"], loss_rel_err=rel,
+                  grad_max_abs_err=grad_err, grad_max=top,
+                  launches=flash["launches"])
+    emit("kernels", kernel="tiled_flash", what="an fp32 autograd step, "
+         "SEED-LLaMA-8B width cut to 2 layers + LoRA, train_llm.llm_loss, "
+         "use_flash against plain mha", card=name, **record)
+    if not all(flash["launches"].values()) or any(plain["launches"].values()):
+        raise AssertionError(f"fp32 step launches: {flash['launches']}, "
+                             f"plain {plain['launches']}")
+    if not (rel <= 1e-4 and grad_err <= 1e-3 * top):
+        raise AssertionError(f"fp32 step: loss rel err {rel}, gradient "
+                             f"{grad_err} of {top}")
     return record
 
 
@@ -3038,6 +3125,8 @@ def redesigned_smem_bytes() -> dict:
             "short_mha_f32": short.seed_short_mha_f32_plan(257, 257, 88, 1),
             **{k: flash.seed_flash_smem_bytes(i, 1, 128) for i, k in
                enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))},
+            "flash_fwd_f32": flash.seed_flash_smem_bytes(0, 0, 128),
+            "flash_bwd_dkv_f32": flash.seed_flash_smem_bytes(2, 0, 128),
             "int8_matmul": int8.seed_int8_matmul_smem_bytes(),
             "w8a8_matmul": w8a8.seed_w8a8_smem_bytes(2056)}
 
@@ -3217,6 +3306,16 @@ def main() -> None:
         if k.startswith("flash_"):     # the fp32 kernels, on no path
             entry["fp32"] = dict(record[k]["fp32"],
                                  launches=getattr(TF, k).launches_f32)
+            f32 = usage.get(k + "_f32", {})
+            if k + "_f32" in smem:    # the split-TF32 instances
+                entry["fp32"]["kernel"] = dict(
+                    name=k + "_f32_kernel",
+                    registers=f32.get("128", {}).get("registers"),
+                    registers_by_instance={key: u.get("registers")
+                                           for key, u in sorted(f32.items())},
+                    spill_bytes=(sum(spill_bytes(u) for u in f32.values())
+                                 if f32 else None),
+                    smem_bytes=smem[k + "_f32"])
         entry.update(
             ms_host_included=record[k].get("ms_host_included"),
             registers=per_dp.get(main_dp[k], {}).get("registers"),

@@ -62,11 +62,23 @@
 //     warps; the scores are computed by both). The kv tiles launch in order,
 //     which is heaviest first for this kernel.
 //
-// The fp32 kernels are the first design: one block owns (batch, head, one
-// square tile of 32 rows, 16 when D > 128) and streams the other operand
-// through shared memory tile by tile, every product on the FMA units (fp32
-// has no full-precision tensor-core path; TF32 rounds the products) out of
-// shared memory, the fp32 accumulators kept there between steps.
+// The fp32 forward and dk/dv (flash_fwd_f32_kernel, flash_bwd_dkv_f32_kernel)
+// take the same shapes with fp32 operands on the tensor cores as split-TF32
+// products (sm90::mma_3xtf32: three mma.sync m16n8k8 tf32 products of each
+// operand's hi and lo halves, within about 3 * 2^-22 of |a b| of the fp32
+// product, where TF32 alone keeps 11 bits). Operands are split in registers
+// as their fragments leave shared memory, which holds each tile once (rows
+// of Dp + 4 floats, Dp = D rounded up to 16); scores and P stay in
+// registers. The forward takes 64 q rows over kv tiles of 32 rows, dk/dv 64
+// kv rows over q tiles of 16 (above Dp = 128 with two warps on each 16 kv
+// rows). At the fp32 training shape (B=1, H=32, S=1024, D=128, causal)
+// the forward is 8.6 GFLOP, 0.128 ms at the FMA units' 67 TFLOP/s, 0.052 ms
+// as three TF32 products at 495; dk/dv twice that.
+//
+// The fp32 dq kernel is the first design: one block owns (batch, head, one
+// square tile of 32 rows, 16 when D > 128) and streams K and V through
+// shared memory tile by tile, every product on the FMA units out of shared
+// memory, the fp32 accumulators kept there between steps.
 //
 // q, k, v and dO are read in place as [B, S, H, D] through element strides,
 // ragged S and D are masked while staging (rows past the end and columns
@@ -90,25 +102,12 @@ constexpr float kMaskValue = (float)(-0.7 * (double)FLT_MAX);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ------------------------------------------------ fp32 kernels (first design)
+// ------------------------------------------------ fp32 dq kernel (first design)
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 // Row padding of the fp32 shared tiles: an odd row stride, so lanes reading
 // down a column hit distinct banks.
 constexpr int kPad = 1;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __host__ __device__ inline size_t region(size_t bytes) { return (bytes + 31) / 32 * 32; }
 
@@ -178,99 +177,6 @@ struct Strides {
   long long b, s, h;
 };
 
-// ---------------------------------------------------------- forward, fp32
-// grid (q tiles, H, B). o is contiguous [B, Sq, H, D], lse fp32 [B, H, Sq].
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int Sq, int Sk, int H, int D, int Dp, int tile, Strides qs, Strides ks,
-                 Strides vs, float scale, int causal, int q_offset) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldt = Dp + kPad, lds = tile + kPad;
-  Carver cv{smem_raw};
-  float* Qs = cv.take(tile * ldt);
-  float* Ks = cv.take(tile * ldt);
-  float* Vs = cv.take(tile * ldt);
-  float* Ps = cv.take(tile * lds);
-  float* Ss = cv.take(tile * lds);
-  float* Os = cv.take(tile * ldt);
-  float* ms = cv.take(tile);
-  float* ls = cv.take(tile);
-
-  const int b = blockIdx.z, h = blockIdx.y, r0 = (int)blockIdx.x * tile;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-
-  stage(Qs, ldt, qb, qs.s, r0, Sq, tile, D, Dp);
-  for (int i = tid; i < tile * ldt; i += kThreads) Os[i] = 0.f;
-  for (int i = tid; i < tile; i += kThreads) {
-    ms[i] = -INFINITY;
-    ls[i] = 0.f;
-  }
-
-  // kv tiles this q tile meets: all of them, or up to the diagonal
-  const int kv_tiles = (Sk + tile - 1) / tile;
-  int hi = kv_tiles;
-  if (causal) {
-    const int last_row = r0 + tile - 1 + q_offset;
-    hi = last_row < 0 ? 0 : min(kv_tiles, last_row / tile + 1);
-  }
-
-  for (int j = 0; j < hi; ++j) {
-    const int c0 = j * tile;
-    __syncthreads();
-    stage(Ks, ldt, kb, ks.s, c0, Sk, tile, D, Dp);
-    stage(Vs, ldt, vb, vs.s, c0, Sk, tile, D, Dp);
-    __syncthreads();
-    tile_mm<true, false>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
-    __syncthreads();
-
-    // online softmax, one warp per row: new max, rescale l and the output row
-    for (int r = warp; r < tile; r += kWarps) {
-      const int row = r0 + r + q_offset;
-      float* srow = Ss + r * lds;
-      float mx = -INFINITY;
-      for (int c = lane; c < tile; c += 32) {
-        const float s = masked_score(srow[c], scale, causal, row, c0 + c, Sk);
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_prev = ms[r], m_next = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_next);
-      float* prow = Ps + r * lds;
-      float sum = 0.f;
-      for (int c = lane; c < tile; c += 32) {
-        const float p = expf(srow[c] - m_next);
-        sum += p;
-        prow[c] = p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        ms[r] = m_next;
-        ls[r] = alpha * ls[r] + sum;
-      }
-      float* orow = Os + r * ldt;
-      for (int d = lane; d < Dp; d += 32) orow[d] *= alpha;
-    }
-    __syncthreads();
-    tile_mm<true, true>(Os, ldt, Ps, lds, Vs, ldt, tile, Dp, tile, true);
-  }
-  __syncthreads();
-
-  for (int r = warp; r < tile; r += kWarps) {
-    const int row = r0 + r;
-    if (row >= Sq) continue;
-    const float l = ls[r];
-    const float l_inv = l == 0.f ? 1.f : 1.f / l;
-    float* orow = o + (((long long)b * Sq + row) * H + h) * D;
-    for (int d = lane; d < D; d += 32) orow[d] = Os[r * ldt + d] * l_inv;
-    if (lane == 0) lse[((long long)b * H + h) * Sq + row] = l == 0.f ? 0.f : ms[r] + logf(l);
-  }
-}
-
 // ------------------------------------------------------- backward dq, fp32
 // grid (q tiles, H, B). lse and delta are fp32 [B, H, Sq]; dq is contiguous
 // [B, Sq, H, D]. No q_offset: the caller takes another route for it.
@@ -332,85 +238,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = tid; i < tile * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     if (r0 + r < Sq) dq[(((long long)b * Sq + r0 + r) * H + h) * D + d] = dQs[r * ldt + d] * scale;
-  }
-}
-
-// -------------------------------------------------- backward dk/dv, fp32
-// grid (kv tiles, H, B). dk, dv are contiguous [B, Sk, H, D]. With causal
-// masking the q tiles above this kv tile's diagonal tile are skipped (tiles
-// are square and there is no q_offset, so the diagonal tile's index is the kv
-// tile's).
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
-                     int D, int Dp, int tile, Strides qs, Strides ks, Strides vs, Strides gs,
-                     float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldt = Dp + kPad, lds = tile + kPad;
-  Carver cv{smem_raw};
-  float* Ks = cv.take(tile * ldt);
-  float* Vs = cv.take(tile * ldt);
-  float* Qs = cv.take(tile * ldt);
-  float* Gs = cv.take(tile * ldt);       // dO
-  float* Ps = cv.take(tile * lds);
-  float* dSs = cv.take(tile * lds);
-  float* Ss = cv.take(tile * lds);
-  float* dPs = cv.take(tile * lds);
-  float* dKs = cv.take(tile * ldt);
-  float* dVs = cv.take(tile * ldt);
-  float* lses = cv.take(tile);
-  float* deltas = cv.take(tile);
-
-  const int b = blockIdx.z, h = blockIdx.y, c0 = (int)blockIdx.x * tile;
-  const int tid = threadIdx.x;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* gb = dout + b * gs.b + h * gs.h;
-  const long long row_base = ((long long)b * H + h) * Sq;
-
-  stage(Ks, ldt, k + b * ks.b + h * ks.h, ks.s, c0, Sk, tile, D, Dp);
-  stage(Vs, ldt, v + b * vs.b + h * vs.h, vs.s, c0, Sk, tile, D, Dp);
-  for (int i = tid; i < tile * ldt; i += kThreads) {
-    dKs[i] = 0.f;
-    dVs[i] = 0.f;
-  }
-
-  const int q_tiles = (Sq + tile - 1) / tile;
-  const int lo = causal ? (int)blockIdx.x : 0;
-
-  for (int qi = lo; qi < q_tiles; ++qi) {
-    const int r0 = qi * tile;
-    __syncthreads();
-    stage(Qs, ldt, qb, qs.s, r0, Sq, tile, D, Dp);
-    stage(Gs, ldt, gb, gs.s, r0, Sq, tile, D, Dp);
-    stage_rows(lses, lse + row_base, r0, Sq, tile);
-    stage_rows(deltas, delta + row_base, r0, Sq, tile);
-    __syncthreads();
-    tile_mm<true, false>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
-    tile_mm<true, false>(dPs, lds, Gs, ldt, Vs, ldt, tile, tile, Dp, false);
-    __syncthreads();
-    for (int i = tid; i < tile * tile; i += kThreads) {
-      const int r = i / tile, c = i - r * tile;
-      const float s = masked_score(Ss[r * lds + c], scale, causal, r0 + r, c0 + c, Sk);
-      const float p = expf(s - lses[r]);
-      Ps[r * lds + c] = p;
-      dSs[r * lds + c] = p * (dPs[r * lds + c] - deltas[r]);
-    }
-    __syncthreads();
-    // dV[c][d] += sum_r P[r][c] dO[r][d];  dK[c][d] += sum_r dS[r][c] Q[r][d]
-    tile_mm<false, true>(dVs, ldt, Ps, lds, Gs, ldt, tile, Dp, tile, true);
-    tile_mm<false, true>(dKs, ldt, dSs, lds, Qs, ldt, tile, Dp, tile, true);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < tile * D; i += kThreads) {
-    const int c = i / D, d = i - c * D;
-    if (c0 + c < Sk) {
-      const long long at = (((long long)b * Sk + c0 + c) * H + h) * D + d;
-      dk[at] = dKs[c * ldt + d] * scale;
-      dv[at] = dVs[c * ldt + d];
-    }
   }
 }
 
@@ -959,18 +786,385 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// ---------------------------------------------- fp32 kernels (split TF32)
+//
+// The bf16 kernels' shape with fp32 operands: every product is three
+// mma.sync m16n8k8 tf32 products (sm90::mma_3xtf32), each operand split into
+// hi and lo in registers right after its fragment is read from shared
+// memory, so shared memory holds each tile once. Shared rows are Dp + 4
+// floats; fragments come through scalar loads (ldmatrix moves 16-bit pairs)
+// free of bank conflicts. A C fragment of scores becomes the A fragment of
+// the next product in registers (sm90::c_to_a_tf32), V's, dO's and Q's rows
+// read in its k order.
+
+// kv tile rows of the fp32 forward: the Q tile and a two-stage ring of K
+// and V fit two blocks an SM up to Dp = 128 (101,376 bytes) and one above.
+constexpr int kF32KvTile = 32;
+// q tile rows of the fp32 dk/dv kernel: K, V and a two-stage ring of Q and
+// dO fit two blocks an SM up to Dp = 128 (101,632 bytes; 32-row q tiles
+// would leave room for one) and one above (199,936 at Dp = 256).
+constexpr int kF32QTile = 16;
+// Both fp32 kernels declare at least one block an SM: without it ptxas
+// trades registers for a third block that shared memory does not allow,
+// and spills.
+
+// Row i (0: g, 1: g + 8) of a warp's 16-row block of C fragments acc[N8][4],
+// times `mul`, into columns [col0, col0 + 8 * N8) of `row`, those from D on
+// dropped.
+template <int N8>
+__device__ __forceinline__ void store_row_f32(float* row, const float (&acc)[N8][4], int i,
+                                              float mul, int col0, int D, int t) {
+#pragma unroll
+  for (int n = 0; n < N8; ++n) {
+    const int col = col0 + n * 8 + 2 * t;
+    const float v0 = __fmul_rn(acc[n][2 * i], mul), v1 = __fmul_rn(acc[n][2 * i + 1], mul);
+    if ((D & 1) == 0 && col + 1 < D) {
+      *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+    } else {
+      if (col < D) row[col] = v0;
+      if (col + 1 < D) row[col + 1] = v1;
+    }
+  }
+}
+
+// ------------------------------------------------------ forward, fp32
+// grid (H, B, q tiles). o is contiguous [B, Sq, H, D], lse fp32 [B, H, Sq].
+// The shape of flash_fwd_bf16_kernel with 32-row kv tiles and scores in
+// base e.
+template <int Dp>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int Sq, int Sk, int H, int D, Strides qs, Strides ks, Strides vs,
+                     float scale, int causal, int q_offset, int vec) {
+  constexpr int KT = kF32KvTile;
+  constexpr int ld = Dp + sm90::kF32RowPad;
+  constexpr int NS = KT / 8;             // n8 tiles of a score row block; k8 steps of P V
+  constexpr int ND = Dp / 8;             // n8 tiles of an output row block; k8 steps of Q K^T
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + kMmaRows * ld;        // kStages stages of KT rows
+  float* Vs = Ks + kStages * KT * ld;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int r0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kMmaRows;   // heaviest first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = warp * 16;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  const int kv_tiles = (Sk + KT - 1) / KT;
+  int hi = kv_tiles;
+  if (causal) {
+    const int last_row = r0 + kMmaRows - 1 + q_offset;
+    hi = last_row < 0 ? 0 : min(kv_tiles, last_row / KT + 1);
+  }
+
+  // the ring: kv tile j lives in stage j % kStages, issued kStages - 1 tiles
+  // ahead; one group per tile (Q rides with tile 0)
+  auto stage_kv = [&](int j) {
+    const int at = (j % kStages) * KT * ld;
+    sm90::stage_tile_f32<Dp, kMmaThreads>(Ks + at, kb, ks.s, j * KT, Sk, KT, D, vec);
+    sm90::stage_tile_f32<Dp, kMmaThreads>(Vs + at, vb, vs.s, j * KT, Sk, KT, D, vec);
+  };
+  sm90::stage_tile_f32<Dp, kMmaThreads>(Qs, qb, qs.s, r0, Sq, kMmaRows, D, vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < hi) stage_kv(i);
+    sm90::cp_async_commit();
+  }
+
+  // this thread's two rows (g and g + 8 of the warp's 16), on the causal scale
+  const int row_lo = r0 + wrow0 + g + q_offset;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < hi; ++j) {
+    sm90::cp_async_wait<kStages - 2>();
+    __syncthreads();     // tile j visible; every warp is past tile j - 1
+    if (j + kStages - 1 < hi) stage_kv(j + kStages - 1);
+    sm90::cp_async_commit();
+    const float* Kt = Ks + (j % kStages) * KT * ld;
+    const float* Vt = Vs + (j % kStages) * KT * ld;
+
+    // S = Q K^T, then scores times the scale
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[4], al[4];
+      sm90::load_a_tf32(ah, al, Qs, ld, wrow0, kk * 8, lane);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_nk_tf32(bh, bl, Kt, ld, n * 8, kk * 8, lane);
+        sm90::mma_3xtf32(s[n], ah, al, bh, bl);
+      }
+    }
+    const int c0 = j * KT;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+    // element masks only where the tile crosses the diagonal or the keys' end
+    if (c0 + KT > Sk || (causal && c0 + KT - 1 > r0 + wrow0 + q_offset)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + n * 8 + 2 * t + (e & 1);
+          const int row = row_lo + (e >> 1) * 8;
+          if ((causal && col > row) || col >= Sk) s[n][e] = kMaskValue;
+        }
+    }
+
+    // online softmax over the thread's two rows; quads hold whole rows
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = sm90::quad_max(mx);
+      alpha[i] = expf(__fsub_rn(m[i], mx));
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][2 * i] = expf(__fsub_rn(s[n][2 * i], mx));
+        s[n][2 * i + 1] = expf(__fsub_rn(s[n][2 * i + 1], mx));
+        sum += s[n][2 * i] + s[n][2 * i + 1];
+      }
+      l[i] = __fadd_rn(__fmul_rn(alpha[i], l[i]), sm90::quad_sum(sum));
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V, P's C fragments as the A operand
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      uint32_t ah[4], al[4];
+      sm90::c_to_a_tf32(ah, al, s[kk]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_kn_tf32(bh, bl, Vt, ld, kk * 8, n * 8, lane);
+        sm90::mma_3xtf32(acc[n], ah, al, bh, bl);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wrow0 + g + 8 * i;
+    if (row >= Sq) continue;
+    const float l_inv = l[i] == 0.f ? 1.f : 1.f / l[i];
+    store_row_f32(o + (((long long)b * Sq + row) * H + h) * D, acc, i, l_inv, 0, D, t);
+    if (t == 0)
+      lse[((long long)b * H + h) * Sq + row] = l[i] == 0.f ? 0.f : __fadd_rn(m[i], logf(l[i]));
+  }
+}
+
+// -------------------------------------------------- backward dk/dv, fp32
+// grid (H, B, kv tiles). dk, dv are contiguous [B, Sk, H, D]. The shape of
+// flash_bwd_dkv_bf16_kernel with fp32 q tiles of 16 rows and scores in base
+// e. Causal: the first q tile is the one whose last row
+// reaches the kv tile's first column.
+template <int Dp>
+__global__ void __launch_bounds__(kMmaThreads * dkv_split(Dp), 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+                         int D, Strides qs, Strides ks, Strides vs, Strides gs, float scale,
+                         int causal, int vec) {
+  constexpr int kSplit = dkv_split(Dp);
+  constexpr int kThreadsHere = kMmaThreads * kSplit;
+  constexpr int QT = kF32QTile;
+  constexpr int ld = Dp + sm90::kF32RowPad;
+  constexpr int NQ = QT / 8;             // n8 tiles of a transposed score row block;
+                                         // k8 steps of P^T dO and dS^T Q
+  constexpr int NO = Dp / 8 / kSplit;    // n8 tiles of dK and dV a warp owns
+  constexpr int KD = Dp / 8;             // k8 steps of K Q^T and V dO^T
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + kMmaRows * ld;
+  float* Qs = Vs + kMmaRows * ld;        // kStages stages of QT rows
+  float* Gs = Qs + kStages * QT * ld;    // dO, the same
+  float* Ls = Gs + kStages * QT * ld;    // lse, kStages x QT
+  float* Ds = Ls + kStages * QT;         // delta
+
+  const int h = blockIdx.x, b = blockIdx.y, c0 = (int)blockIdx.z * kMmaRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = (warp % 4) * 16;                 // the warp's kv rows
+  const int col0 = (warp / 4) * (Dp / kSplit);       // its columns of dK and dV
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* gb = dout + b * gs.b + h * gs.h;
+  const long long row_base = ((long long)b * H + h) * Sq;
+
+  const int q_tiles = (Sq + QT - 1) / QT;
+  const int lo = causal ? min(q_tiles, c0 / QT) : 0;
+
+  // the ring: q tile i lives in stage (i - lo) % kStages with its lse and
+  // delta; one group per tile (K and V ride with the first)
+  auto stage_q = [&](int i) {
+    const int st = (i - lo) % kStages, r0 = i * QT;
+    sm90::stage_tile_f32<Dp, kThreadsHere>(Qs + st * QT * ld, qb, qs.s, r0, Sq, QT, D, vec);
+    sm90::stage_tile_f32<Dp, kThreadsHere>(Gs + st * QT * ld, gb, gs.s, r0, Sq, QT, D, vec);
+    for (int x = threadIdx.x; x < 2 * QT; x += kThreadsHere) {
+      const int r = x % QT;
+      const bool ok = r0 + r < Sq;
+      const float* src = (x < QT ? lse : delta) + row_base + (ok ? r0 + r : 0);
+      sm90::cp_async_4((x < QT ? Ls : Ds) + st * QT + r, src, ok);
+    }
+  };
+  sm90::stage_tile_f32<Dp, kThreadsHere>(Ks, k + b * ks.b + h * ks.h, ks.s, c0, Sk, kMmaRows, D,
+                                         vec);
+  sm90::stage_tile_f32<Dp, kThreadsHere>(Vs, v + b * vs.b + h * vs.h, vs.s, c0, Sk, kMmaRows, D,
+                                         vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (lo + i < q_tiles) stage_q(lo + i);
+    sm90::cp_async_commit();
+  }
+
+  // this thread's two kv rows are kv_lo and kv_lo + 8
+  const int kv_lo = c0 + wrow0 + g;
+  const bool kv_edge = c0 + wrow0 + 15 >= Sk;
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int i = lo; i < q_tiles; ++i) {
+    sm90::cp_async_wait<kStages - 2>();
+    __syncthreads();     // tile i visible; every warp is past tile i - 1
+    if (i + kStages - 1 < q_tiles) stage_q(i + kStages - 1);
+    sm90::cp_async_commit();
+    const int st = (i - lo) % kStages, r0 = i * QT;
+    const float* Qt = Qs + st * QT * ld;
+    const float* Gt = Gs + st * QT * ld;
+    const float* Lt = Ls + st * QT;
+    const float* Dt = Ds + st * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's kv rows
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      sm90::load_a_tf32(kh, kl, Ks, ld, wrow0, kk * 8, lane);
+      sm90::load_a_tf32(vh, vl, Vs, ld, wrow0, kk * 8, lane);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_nk_tf32(bh, bl, Qt, ld, n * 8, kk * 8, lane);
+        sm90::mma_3xtf32(s[n], kh, kl, bh, bl);
+        sm90::load_b_nk_tf32(bh, bl, Gt, ld, n * 8, kk * 8, lane);
+        sm90::mma_3xtf32(dp[n], vh, vl, bh, bl);
+      }
+    }
+
+    // scores times the scale, masked where the tile crosses the diagonal or
+    // the keys' end; then p in place of s and ds in place of dp. A C
+    // fragment's column is a q row, so lse and delta come per column.
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+    if (kv_edge || (causal && c0 + wrow0 + 15 > r0)) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv_lo + (e >> 1) * 8;
+          const int row = r0 + n * 8 + 2 * t + (e & 1);
+          if ((causal && col > row) || col >= Sk) s[n][e] = kMaskValue;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 lq = *reinterpret_cast<const float2*>(Lt + n * 8 + 2 * t);
+      const float2 dd = *reinterpret_cast<const float2*>(Dt + n * 8 + 2 * t);
+      const float ls[2] = {lq.x, lq.y}, dl[2] = {dd.x, dd.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(__fsub_rn(s[n][e], ls[e & 1]));
+        s[n][e] = p;
+        dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], dl[e & 1]));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this warp's columns, P^T and dS^T
+    // from their C fragments
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      uint32_t ah[4], al[4];
+      sm90::c_to_a_tf32(ah, al, s[kk]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_kn_tf32(bh, bl, Gt, ld, kk * 8, col0 + n * 8, lane);
+        sm90::mma_3xtf32(dva[n], ah, al, bh, bl);
+      }
+      sm90::c_to_a_tf32(ah, al, dp[kk]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_kn_tf32(bh, bl, Qt, ld, kk * 8, col0 + n * 8, lane);
+        sm90::mma_3xtf32(dka[n], ah, al, bh, bl);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kv_lo + 8 * i;
+    if (row >= Sk) continue;
+    const long long at = (((long long)b * Sk + row) * H + h) * D;
+    store_row_f32(dk + at, dka, i, scale, col0, D, t);
+    store_row_f32(dv + at, dva, i, 1.f, col0, D, t);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 int round16(int d) { return (d + 15) / 16 * 16; }
 
-// Square tile of the fp32 kernels by head dim.
+// Square tile of the fp32 dq kernel by head dim.
 int fp32_tile(int D) { return D <= 128 ? 32 : 16; }
 
 // Rows of every tile the kernels walk, by io type (0 fp32, 1 bf16), head
 // dim and `which`: 0 forward q tile, 1 forward kv tile, 2 dq's q rows, 3
 // dq's kv tile, 4 dk/dv's kv rows, 5 dk/dv's q tile.
 int tile_rows(int dtype, int D, int which) {
-  if (dtype != 1) return fp32_tile(D);
+  if (dtype != 1) {
+    switch (which) {
+      case 0: case 4: return kMmaRows;
+      case 1: return kF32KvTile;
+      case 5: return kF32QTile;
+      default: return fp32_tile(D);
+    }
+  }
   const int Dp = sm90::padded_head_dim(D);
   switch (which) {
     case 1: return fwd_kv_tile(Dp);
@@ -993,7 +1187,30 @@ template <typename F> int with_padded_dim(int D, F f) {
   }
 }
 
-// Dynamic shared memory of an fp32 kernel that holds `n_d` tiles of Dp
+// The same with the fp32 kernels' padded head dim, D rounded up to 16.
+template <typename F> int with_f32_dim(int D, F f) {
+  switch (round16(D)) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 144: return f(std::integral_constant<int, 144>{});
+    case 160: return f(std::integral_constant<int, 160>{});
+    case 176: return f(std::integral_constant<int, 176>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 208: return f(std::integral_constant<int, 208>{});
+    case 224: return f(std::integral_constant<int, 224>{});
+    case 240: return f(std::integral_constant<int, 240>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of the first-design dq kernel: `n_d` tiles of Dp
 // columns (operands and accumulators), `n_s` tiles of `tile` columns (scores)
 // and two row vectors.
 size_t fp32_smem_bytes(int tile, int Dp, int n_d, int n_s) {
@@ -1010,12 +1227,20 @@ template <int Dp> size_t bf16_smem_bytes(int kernel) {
          sizeof(float) * 2 * kStages * dkv_q_tile(Dp);
 }
 
+// Dynamic shared memory of the fp32 split-TF32 kernels: 0 forward, 2 dk/dv.
+template <int Dp> size_t f32_smem_bytes(int kernel) {
+  constexpr size_t row = sizeof(float) * (Dp + sm90::kF32RowPad);
+  if (kernel == 0) return row * (kMmaRows + 2 * kStages * kF32KvTile);
+  return row * (2 * kMmaRows + 2 * kStages * kF32QTile) + sizeof(float) * 2 * kStages * kF32QTile;
+}
+
 int smem_bytes_for(int kernel, int dtype, int D) {
   if (dtype == 1)
     return with_padded_dim(
         D, [&](auto dp) { return (int)bf16_smem_bytes<decltype(dp)::value>(kernel); });
-  const int n_d[3] = {4, 5, 6}, n_s[3] = {2, 3, 4};
-  return (int)fp32_smem_bytes(fp32_tile(D), round16(D), n_d[kernel], n_s[kernel]);
+  if (kernel == 1) return (int)fp32_smem_bytes(fp32_tile(D), round16(D), 5, 3);
+  return with_f32_dim(D,
+                      [&](auto dp) { return (int)f32_smem_bytes<decltype(dp)::value>(kernel); });
 }
 
 template <typename Kernel>
@@ -1036,30 +1261,39 @@ struct Args {
 #define SEED_F32(p) static_cast<const float*>(p)
 #define SEED_BF16(p) static_cast<const bf16*>(p)
 
-int launch_fp32(int kernel, const Args& a) {
+int launch_dq_fp32(const Args& a) {
   const int tile = fp32_tile(a.D), Dp = round16(a.D);
-  const size_t smem = smem_bytes_for(kernel, 0, a.D);
-  cudaError_t err = kernel == 0   ? allow_smem(flash_fwd_kernel, smem)
-                    : kernel == 1 ? allow_smem(flash_bwd_dq_kernel, smem)
-                                  : allow_smem(flash_bwd_dkv_kernel, smem);
+  const size_t smem = smem_bytes_for(1, 0, a.D);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(((kernel == 2 ? a.Sk : a.Sq) + tile - 1) / tile, a.H, a.B);
+  dim3 grid((a.Sq + tile - 1) / tile, a.H, a.B);
+  flash_bwd_dq_kernel<<<grid, kThreads, smem, a.st>>>(
+      SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
+      SEED_F32(a.delta), static_cast<float*>(a.o0), a.Sq, a.Sk, a.H, a.D, Dp, tile, a.qs, a.ks,
+      a.vs, a.gs, a.scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 forward (kernel 0) or dk/dv (kernel 2).
+template <int Dp> int launch_f32(int kernel, const Args& a) {
+  const int tiles = ((kernel == 2 ? a.Sk : a.Sq) + kMmaRows - 1) / kMmaRows;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = f32_smem_bytes<Dp>(kernel);
+  cudaError_t err = kernel == 0 ? allow_smem(flash_fwd_f32_kernel<Dp>, smem)
+                                : allow_smem(flash_bwd_dkv_f32_kernel<Dp>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.H, a.B, tiles);
   float* o0 = static_cast<float*>(a.o0);
   float* o1 = static_cast<float*>(a.o1);
   if (kernel == 0)
-    flash_fwd_kernel<<<grid, kThreads, smem, a.st>>>(
-        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), o0, o1, a.Sq, a.Sk, a.H, a.D, Dp, tile,
-        a.qs, a.ks, a.vs, a.scale, a.causal, a.q_offset);
-  else if (kernel == 1)
-    flash_bwd_dq_kernel<<<grid, kThreads, smem, a.st>>>(
-        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
-        SEED_F32(a.delta), o0, a.Sq, a.Sk, a.H, a.D, Dp, tile, a.qs, a.ks, a.vs, a.gs, a.scale,
-        a.causal);
+    flash_fwd_f32_kernel<Dp><<<grid, kMmaThreads, smem, a.st>>>(
+        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), o0, o1, a.Sq, a.Sk, a.H, a.D, a.qs, a.ks,
+        a.vs, a.scale, a.causal, a.q_offset, a.vec);
   else
-    flash_bwd_dkv_kernel<<<grid, kThreads, smem, a.st>>>(
+    flash_bwd_dkv_f32_kernel<Dp><<<grid, kMmaThreads * dkv_split(Dp), smem, a.st>>>(
         SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
-        SEED_F32(a.delta), o0, o1, a.Sq, a.Sk, a.H, a.D, Dp, tile, a.qs, a.ks, a.vs, a.gs,
-        a.scale, a.causal);
+        SEED_F32(a.delta), o0, o1, a.Sq, a.Sk, a.H, a.D, a.qs, a.ks, a.vs, a.gs, a.scale,
+        a.causal, a.vec);
   return (int)cudaGetLastError();
 }
 
@@ -1098,7 +1332,10 @@ int launch(int kernel, int dtype, const Args& a) {
   if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > 256 || a.H > 65535 ||
       a.B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_fp32(kernel, a);
+  if (dtype == 0) {
+    if (kernel == 1) return launch_dq_fp32(a);
+    return with_f32_dim(a.D, [&](auto dp) { return launch_f32<decltype(dp)::value>(kernel, a); });
+  }
   return with_padded_dim(a.D, [&](auto dp) { return launch_bf16<decltype(dp)::value>(kernel, a); });
 }
 
@@ -1109,8 +1346,8 @@ Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and every output but lse).
 // `strides` holds (batch, sequence, head) element strides of q, k, v and, for
 // the backward kernels, dO, in that order; the head dim has a unit stride.
-// `vec` says that a bf16 call may move 8 elements at a time (see
-// sm90::stage_tile). Outputs are contiguous [B, S, H, D]; lse and delta are
+// `vec` says that a call may move 16 bytes at a time (see sm90::stage_tile
+// and sm90::stage_tile_f32; the fp32 dq kernel ignores it). Outputs are contiguous [B, S, H, D]; lse and delta are
 // fp32 [B, H, Sq]. Each launch returns its cudaError_t (0 on success).
 
 // Rows of the tiles the kernels walk (tile_rows above): the wrapper's mirror.
@@ -1129,7 +1366,7 @@ extern "C" int seed_flash_fwd(const void* q, const void* k, const void* v, void*
   return launch(0, dtype,
                 Args{q, k, v, nullptr, nullptr, nullptr, o, lse, B, Sq, Sk, H, D,
                      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-                     none, scale, causal, q_offset, dtype == 1 ? vec : 0,
+                     none, scale, causal, q_offset, vec,
                      static_cast<cudaStream_t>(stream)});
 }
 
@@ -1140,7 +1377,7 @@ extern "C" int seed_flash_bwd_dq(const void* q, const void* k, const void* v, co
   return launch(1, dtype,
                 Args{q, k, v, dout, lse, delta, dq, nullptr, B, Sq, Sk, H, D,
                      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-                     strides_at(strides, 3), scale, causal, 0, dtype == 1 ? vec : 0,
+                     strides_at(strides, 3), scale, causal, 0, vec,
                      static_cast<cudaStream_t>(stream)});
 }
 
@@ -1152,6 +1389,6 @@ extern "C" int seed_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return launch(2, dtype,
                 Args{q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, D,
                      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-                     strides_at(strides, 3), scale, causal, 0, dtype == 1 ? vec : 0,
+                     strides_at(strides, 3), scale, causal, 0, vec,
                      static_cast<cudaStream_t>(stream)});
 }

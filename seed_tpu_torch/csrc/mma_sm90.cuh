@@ -4,7 +4,10 @@
 // accumulators and m16n8k32 s8 with int32 accumulators, both in registers,
 // ldmatrix (plain and .trans) for the operands, cp.async copies of 16 bytes
 // into shared memory, and the conversion of an fp32 accumulator fragment to
-// a bf16 A operand without a trip through shared memory.
+// a bf16 A operand without a trip through shared memory. At the end, the
+// split-TF32 primitives of flash_attention.cu's fp32 forward and dk/dv
+// kernels (mma.sync m16n8k8 tf32, fragments loaded and split from fp32
+// tiles).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 (4 x b32): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -175,6 +178,131 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, const __nv_bfloat
     const int r = i / Dp, d = i - r * Dp;
     dst[r * ld + d] = (row0 + r < rows && d < D) ? src[(long long)(row0 + r) * row_stride + d]
                                                  : __float2bfloat16_rn(0.f);
+  }
+}
+
+// ------------------------------------------- fp32 products as split TF32
+//
+// An fp32 product on the tensor cores as three TF32 products ("3xTF32"):
+// each operand x is split into hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest with ties away (the rounding of cvt.rna.tf32.f32), and
+// a * b is taken as
+// a_lo * b_hi + a_hi * b_lo + a_hi * b_hi with fp32 accumulators. hi + lo
+// holds x within 2^-22 of |x|, and the dropped a_lo * b_lo is below 2^-22
+// of |a b|, so a product is within about 3 * 2^-22 of |a b| of the fp32 one.
+//
+// Fragment layouts of mma.m16n8k8 tf32 (g = lane / 4, t = lane % 4):
+//   A 16x8 (4 x f32): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B 8x8  (2 x f32): b0 (k t, n g), b1 (k t+4, n g)
+//   C 16x8 (4 x f32): as for m16n8k16
+// A C fragment holds columns 2t and 2t + 1 of rows g and g + 8, where an A
+// fragment wants k-slots t and t + 4. A product whose A operand is a C
+// fragment (P V) maps column 2t to k-slot t and 2t + 1 to k-slot t + 4, and
+// reads B's rows in the same order: a sum over k does not depend on the
+// order of its terms within a k8 step, so no value moves between threads.
+//
+// fp32 shared tiles are row-major with rows of Dp + 4 floats (Dp a multiple
+// of 16): the stride is 4 or 20 modulo 32 banks, so both fragment reads
+// below, (row g, column t) and (row 2t, column g), hit 32 distinct banks.
+
+constexpr int kF32RowPad = 4;   // fp32 elements of padding per shared row
+
+// D (+)= A * B, tf32 inputs (fp32 registers whose low 13 bits are zero),
+// fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32, nearest with ties away from zero: cvt.rna.tf32.f32's
+// rounding in two integer instructions (half of the lowest kept bit added to
+// the magnitude, the low 13 bits cleared), where the cvt takes several on
+// sm_90a. Finite values and infinities round as the cvt rounds them.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo within 2^-22 of |x|, each part a tf32 value.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// D (+)= A * B in split TF32: the two small products first, then the large.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// Split A fragment of the 16x8 block at (row0, col0) of a row-major fp32 tile.
+__device__ __forceinline__ void load_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                            const float* tile, int ld, int row0, int col0,
+                                            int lane) {
+  const float* p = tile + (row0 + (lane >> 2)) * ld + col0 + (lane & 3);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * ld], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * ld + 4], hi[3], lo[3]);
+}
+
+// Split B fragment of the n8 tile at n0 over k8 at k0, where the tile holds
+// B transposed: row n, column k (K of S = Q K^T).
+__device__ __forceinline__ void load_b_nk_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                               const float* tile, int ld, int n0, int k0,
+                                               int lane) {
+  const float* p = tile + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[4], hi[1], lo[1]);
+}
+
+// The same when the tile holds B as it is, row k, column n (V of O = P V),
+// in the k order of c_to_a_tf32: k-slot t is row k0 + 2t, t + 4 is k0 + 2t + 1.
+__device__ __forceinline__ void load_b_kn_tf32(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                               const float* tile, int ld, int k0, int n0,
+                                               int lane) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[ld], hi[1], lo[1]);
+}
+
+// The split A fragment of one k8 step from the C fragment of one n8 tile
+// (column 2t to k-slot t, 2t + 1 to t + 4).
+__device__ __forceinline__ void c_to_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                            const float (&c)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// stage_tile for fp32: rows of Dp + kF32RowPad floats; with `vec` (D, the
+// strides and the base address multiples of 4 elements) 16-byte cp.async
+// copies, otherwise element by element, synchronously.
+template <int Dp, int kThreads>
+__device__ __forceinline__ void stage_tile_f32(float* dst, const float* src,
+                                               long long row_stride, int row0, int rows,
+                                               int tile_rows, int D, bool vec) {
+  constexpr int ld = Dp + kF32RowPad, chunks = Dp / 4;
+  if (vec) {
+    for (int i = threadIdx.x; i < tile_rows * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i - r * chunks) * 4;
+      const bool ok = row0 + r < rows && c < D;
+      const float* s = ok ? src + (long long)(row0 + r) * row_stride + c : src;
+      cp_async_16(dst + r * ld + c, s, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < tile_rows * Dp; i += kThreads) {
+    const int r = i / Dp, d = i - r * Dp;
+    dst[r * ld + d] = (row0 + r < rows && d < D) ? src[(long long)(row0 + r) * row_stride + d]
+                                                 : 0.f;
   }
 }
 

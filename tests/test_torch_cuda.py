@@ -284,6 +284,71 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, Sq, Sk, H, D, causal, off):
             assert err <= 2.0 ** -5 * want.float().abs().max().item()
 
 
+# fp32 only (Sq, Sk, D, causal, q_offset): the split-TF32 forward and dk/dv
+# at the head dims 36 (padded to 48), 64, 88 (96), 128 and 256, ragged Sq and
+# Sk against the 64-row blocks and the 32-row kv / 16-row q tiles, chunks at
+# an offset (forward only), non-causal, and D=30 (element-wise staging)
+F32_FLASH_CASES = [(300, 300, 36, True, 0), (111, 111, 64, True, 0),
+                   (257, 257, 88, False, 0), (1024, 1024, 128, True, 0),
+                   (333, 333, 256, True, 0), (190, 450, 128, True, 260),
+                   (100, 356, 88, True, 256), (150, 97, 256, False, 0),
+                   (77, 77, 36, False, 0), (130, 130, 30, True, 0)]
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal,off", F32_FLASH_CASES)
+def test_fp32_flash_fwd_and_dkv_match_plain(gen, Sq, Sk, D, causal, off):
+    """The fp32 forward and dk/dv kernels (split TF32) against their plain
+    versions (true fp32): the forward within 2e-5 (sum order and the split's
+    3 * 2**-22 a product), lse 2e-5, dk and dv 1e-4 absolute, one launch
+    each."""
+    q, k, v = _flash_inputs(gen, Sq, Sk, 2, D, torch.float32)
+    scale = D ** -0.5
+    before = (TF.flash_fwd.launches_f32, TF.flash_bwd_dkv.launches_f32)
+    got, lse = TF.flash_fwd(q, k, v, causal, scale, off)
+    want, want_lse = TF.flash_fwd_plain(q, k, v, causal, scale, off)
+    assert (got - want).abs().max().item() <= 2e-5
+    assert (lse - want_lse).abs().max().item() <= 2e-5
+    if off == 0:
+        dout = torch.randn(q.shape, generator=gen, device="cuda")
+        delta = (dout * want).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, dout, want_lse, delta, causal, scale)
+        dk, dv = TF.flash_bwd_dkv(*args)
+        want_dk, want_dv = TF.flash_bwd_dkv_plain(*args)
+        assert (dk - want_dk).abs().max().item() <= 1e-4
+        assert (dv - want_dv).abs().max().item() <= 1e-4
+    assert (TF.flash_fwd.launches_f32, TF.flash_bwd_dkv.launches_f32) == (
+        before[0] + 1, before[1] + (off == 0))
+
+
+def test_fp32_dkv_repeats_bit_for_bit(gen):
+    """No atomics and one block per kv tile in the fp32 dk/dv kernel: two
+    calls at B=2 S=1024 H=4 D=128 give the same bits."""
+    q, k, v = _flash_inputs(gen, 1024, 1024, 4, 128, torch.float32)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = TF.flash_fwd(q, k, v, True, 128 ** -0.5)
+    delta = (dout * out).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, dout, lse, delta, True, 128 ** -0.5)
+    first, second = TF.flash_bwd_dkv(*args), TF.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("S,D", [(300, 64), (256, 128), (200, 88)])
+def test_tiled_flash_fp32_gradients_match_mha(gen, S, D):
+    """_TiledFlash in fp32 (the forward, dq and dk/dv kernels) against
+    autograd through the plain mha path: q, k and v gradients of sum(O**2)
+    within 2e-4, the bound of seed_tpu's own flash tests."""
+    from seed_tpu_torch.ops.attention import mha, sliced_causal_mask
+    leaves = [t.requires_grad_() for t in _flash_inputs(gen, S, S, 2, D,
+                                                        torch.float32)]
+    refs = [t.detach().clone().requires_grad_() for t in leaves]
+    (TF.tiled_flash(*leaves, True, D ** -0.5) ** 2).sum().backward()
+    mask = sliced_causal_mask(S, S, 0, "cuda")
+    (mha(*refs, mask=mask, scale=D ** -0.5) ** 2).sum().backward()
+    for t, r in zip(leaves, refs):
+        assert (t.grad - r.grad).abs().max().item() <= 2e-4
+
+
 def test_tiled_flash_autograd_runs_the_three_kernels(gen):
     """backward launches dq and dk/dv once each and agrees with autograd
     through the plain mha path (fp32: 3e-3, seed_tpu's own bound); strided

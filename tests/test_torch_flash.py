@@ -208,16 +208,20 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     "dtype,D,fwd,bwd",
     [(torch.bfloat16, 128, (64, 64), ((64, 64), (64, 32))),
      (torch.bfloat16, 160, (64, 32), ((64, 32), (64, 32))),
-     (torch.float32, 128, (32, 32), ((32, 32), (32, 32))),
-     (torch.float32, 256, (16, 16), ((16, 16), (16, 16))),
-     (torch.bfloat16, 64, (64, 64), ((64, 64), (64, 64)))],
+     (torch.float32, 128, (64, 32), ((32, 32), (64, 16))),
+     (torch.float32, 256, (64, 32), ((16, 16), (64, 16))),
+     (torch.bfloat16, 64, (64, 64), ((64, 64), (64, 64))),
+     (torch.float32, 36, (64, 32), ((32, 32), (64, 16))),
+     (torch.float32, 144, (64, 32), ((16, 16), (64, 16)))],
     ids=["dtype0-128-fwd0-64", "dtype1-160-fwd1-32", "dtype2-128-fwd2-32",
-         "dtype3-256-fwd3-16", "bf16-64"])
+         "dtype3-256-fwd3-16", "bf16-64", "fp32-36", "fp32-144"])
 def test_plain_versions_walk_the_kernels_tiles(dtype, D, fwd, bwd):
     """The forward's (q tile, kv tile) and the backward's ((dq q rows, kv
     tile), (dk/dv kv rows, q tile)): bf16 blocks own 64 rows; the forward
     and dq halve their kv tile above D = 128, dk/dv streams 32-row q tiles
-    above D = 64; fp32 keeps one square tile everywhere."""
+    above D = 64. fp32: the forward's 64 q rows over 32-row kv tiles at
+    every D; dk/dv's 64 kv rows over 16-row q tiles; dq keeps its square
+    tile (32, 16 above D = 128)."""
     assert TF.fwd_tiles(dtype, D) == fwd
     assert TF.bwd_tiles(dtype, D) == bwd
 
@@ -246,9 +250,12 @@ def test_flash_lib_raises_when_the_kernels_tiles_differ(monkeypatch):
 
 
 # (name, Sq, Sk, D, causal, q_offset): Sq not a multiple of the forward's
-# 64-row q tile, D=88 (padded to 96 by the bf16 kernel)
+# 64-row q tile, D=88 (padded to 96 by the bf16 kernel); S=111 splits into
+# 32-row fp32 kv tiles 32 + 32 + 32 + 15 under 64-row q tiles 64 + 47, D=36
+# (padded to 48 by the fp32 kernels, 64 by the bf16 ones)
 RETILED = [("ragged_causal_d88", 200, 200, 88, True, 0),
-           ("offset_ragged_d88", 100, 356, 88, True, 256)]
+           ("offset_ragged_d88", 100, 356, 88, True, 256),
+           ("uneven_kv_tiles_d36", 111, 111, 36, True, 0)]
 
 
 def _pallas_fwd_bhsd(arrays, causal, scale, off, dtype, block=128):
@@ -290,9 +297,12 @@ def test_retiled_forward_plain_matches_pallas_kernel(name, Sq, Sk, D, causal,
 
 
 # (name, S, D, causal): S = 200 is a multiple of neither backward tile (64,
-# 32), D = 88 pads to 96 (dk/dv's 32-row q tiles); D = 64 takes 64-row q tiles
+# 32), D = 88 pads to 96 (dk/dv's 32-row q tiles); D = 64 takes 64-row q tiles;
+# S = 111 gives the fp32 dk/dv kernel's 64-row kv blocks 64 + 47 over q tiles
+# of 16 (six whole and 15 rows)
 RETILED_BWD = [("ragged_causal_d88", 200, 88, True),
-               ("ragged_noncausal_d64", 150, 64, False)]
+               ("ragged_noncausal_d64", 150, 64, False),
+               ("uneven_q_tiles_d36", 111, 36, True)]
 
 
 def _pallas_bwd_bhsd(arrays, dout, lse, delta, causal, scale, dtype,
@@ -342,6 +352,56 @@ def test_retiled_backward_plain_matches_pallas_kernels(name, S, D, causal,
         err = np.abs(f32(t) - f32(w)).max()
         tol = 1e-4 if dtype == "float32" else 2.0 ** -5 * np.abs(f32(w)).max()
         assert err <= tol, (label, err, tol)
+
+
+# ------------------------------------- split TF32 (the fp32 kernels' products)
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` in integer ops on the fp32 pattern: adding half
+    of the lowest kept bit (0x1000) to the magnitude rounds the low 13
+    mantissa bits to nearest with ties away from zero (the sign bit is
+    untouched, so negative values round the same way), then they are
+    cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor):
+    """``sm90::split_tf32``: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def test_split_tf32_mirror_holds_its_error_bounds():
+    """The fp32 forward and dk/dv kernels take every fp32 product as
+    a_lo b_hi + a_hi b_lo + a_hi b_hi (csrc/mma_sm90.cuh). Here a mirror of
+    the split in integer ops: ties round away from zero; hi and lo are tf32
+    values (low 13 bits zero); hi + lo holds x within 2**-22 of |x|. On
+    seeded D = 128 rows the three-term product (summed exactly, in float64)
+    is within 3 * 2**-22 of sum |q_i k_i| of the exact product of the same
+    fp32 inputs, and the scores (times D**-0.5) within 2e-6 of theirs: the
+    margin under FLASH_FWD_TOL (2e-5 on outputs, chip_smoke.py), which the
+    split leaves unchanged."""
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23],
+                       dtype=torch.float32)
+    assert _tf32_rna(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
+
+    r = np.random.RandomState(13)
+    q = torch.from_numpy(r.randn(512, 128).astype(np.float32))
+    k = torch.from_numpy(r.randn(512, 128).astype(np.float32))
+    for x in (q, k):
+        hi, lo = _split_tf32(x)
+        for part in (hi, lo):
+            assert not (part.view(torch.int32) & 0x1FFF).any()
+        err = (x.double() - hi.double() - lo.double()).abs()
+        assert (err <= 2.0 ** -22 * x.double().abs()).all()
+    (qh, ql), (kh, kl) = _split_tf32(q), _split_tf32(k)
+    d = lambda t: t.double()
+    three = d(ql) @ d(kh).T + d(qh) @ d(kl).T + d(qh) @ d(kh).T
+    exact = d(q) @ d(k).T
+    err = (three - exact).abs()
+    assert (err <= 3 * 2.0 ** -22 * (d(q).abs() @ d(k).abs().T)).all()
+    assert err.max().item() * 128 ** -0.5 <= 2e-6
 
 
 # ------------------------------------------------ the slice: LLaMA training
