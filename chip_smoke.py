@@ -16,13 +16,14 @@ Phases, each printing lines of its own:
              int8_matmul and w8a8_matmul repeat their bits at every case;
              short_mha's gradient (the mha recompute) against mha. The fp32
              instances off every path, int8_matmul with fp32 x (M=256,
-             K=N=4096; first design) and the fp32 flash forward and dk/dv
-             (split TF32; dk/dv bit for bit over two calls) and dq (first
-             design) at B=1, S=1024, H=32, D=128, causal, are timed beside
-             their bounds, plain versions and library calls, and their
-             launches after this phase are counted; one fp32 autograd step
-             at SEED-LLaMA-8B's width cut to 2 layers through
-             train_llm.llm_loss launches all three against plain mha.
+             K=N=4096; two TF32 products against the exact int8 weight) and
+             the fp32 flash forward, dq and dk/dv (split TF32; dq and dk/dv
+             bit for bit over two calls) at B=1, S=1024, H=32, D=128,
+             causal, are timed beside their bounds, plain versions and
+             library calls, and their launches after this phase are
+             counted; one fp32 autograd step at SEED-LLaMA-8B's width cut to
+             2 layers through train_llm.llm_loss launches all three against
+             plain mha.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -195,19 +196,32 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def split_tf32_bounds(nbytes: float, flops: float, products: int) -> dict:
+    """The bound of an fp32 kernel whose products run as split TF32 on the
+    tensor cores, the card's fastest fp32-accurate products: ``products``
+    TF32 products for each fp32 one (three; two where one operand is an
+    int8 weight, a TF32 value exactly) at the TF32 peak. The same fp32
+    operations on the FMA units are kept apart as ``bound_fp32_fma_ms``."""
+    bms, by = bound_ms(nbytes, products * flops, TF32_FLOPS)
+    return dict(bound_ms=bms, bound_by=by,
+                bound_fp32_fma_ms=bound_ms(nbytes, flops, FP32_FLOPS)[0])
+
+
 # --------------------------------------------------------------- phase 1
 
 # the redesigned kernels of rows 1-6, by their functions' names (row 2 also
-# its split-K reduction; row 1 its fp32 instance on the FMA units apart;
-# rows 3 and 5 their fp32 instances on split-TF32 products apart)
+# its split-K reduction and its fp32-x kernel; row 1 its fp32 instance on
+# the FMA units apart; rows 3-5 their fp32 instances on split-TF32 products
+# apart)
 PTXAS_KERNELS = {"short_mha": ("short_mha_bf16_kernel",),
                  "short_mha_f32": ("short_mha_f32_kernel",),
                  "flash_fwd": ("flash_fwd_bf16_kernel",),
                  "flash_fwd_f32": ("flash_fwd_f32_kernel",),
                  "flash_bwd_dq": ("flash_bwd_dq_bf16_kernel",),
+                 "flash_bwd_dq_f32": ("flash_bwd_dq_f32_kernel",),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",),
                  "flash_bwd_dkv_f32": ("flash_bwd_dkv_f32_kernel",),
-                 "int8_matmul": ("int8_mm_bf16", "int8_mm_reduce"),
+                 "int8_matmul": ("int8_mm_bf16", "int8_mm_reduce", "int8_mm_f32"),
                  "w8a8_matmul": ("w8a8_mm",)}
 
 
@@ -396,17 +410,21 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     """Kernel row 2 against its plain version: the four (K, N) pairs of the
     8B prefill at M = 4 x 64 (phase 3) and at VQA_PREFILL_M (phase 11b, no
     split, several waves), bf16 x, and 4096 x 4096 at M = 512 (the
-    scheduler's bucket); fp32 x and a ragged M once each. Every case is
-    repeated bit for bit and timed beside the plain version, two library
-    yardsticks and the bound. Tolerance, relative to max|y|: bf16 2**-7 (one
-    output rounding apart), fp32 1e-5 (sum order only)."""
+    scheduler's bucket); a ragged M; fp32 x at 4096 x 4096 (split), 11008 x
+    4096 (split, the longest K) and 4096 x 40320 with a ragged M (unsplit).
+    Every case is repeated bit for bit and timed beside the plain version,
+    two library yardsticks and the bound (fp32 also as two TF32 products).
+    Tolerance, relative to max|y|: bf16 2**-7 (one output rounding apart),
+    fp32 1e-5 (sum order and x's split residue, within 2**-22 a product)."""
     from seed_tpu_torch.ops.int8_matmul import (int8_matmul, int8_matmul_plain,
                                                 int8_plan, _SIGNATURES)
     from seed_tpu_torch.ops import kernels
     from seed_tpu_torch.ops.quantization import quantize_weight
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    smem = kernels.load("int8_matmul", _SIGNATURES).seed_int8_matmul_smem_bytes()
+    lib8 = kernels.load("int8_matmul", _SIGNATURES)
+    smem = {dtype: lib8.seed_int8_matmul_smem_bytes(code)
+            for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1))}
     built = usage.get("int8_matmul", {})
     per_prefill = {(4096, 4096): 4 * 32, (4096, 11008): 2 * 32,
                    (11008, 4096): 32, (4096, 40320): 1}
@@ -415,8 +433,9 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     ops_total = bytes_total = 0.0
     cases = [(M, K, N, torch.bfloat16) for M in (256, VQA_PREFILL_M)
              for (K, N) in per_prefill]
-    cases += [(512, 4096, 4096, torch.bfloat16), (256, 4096, 4096, torch.float32),
-              (300, 4096, 11008, torch.bfloat16)]
+    cases += [(512, 4096, 4096, torch.bfloat16), (300, 4096, 11008, torch.bfloat16),
+              (256, 4096, 4096, torch.float32), (256, 11008, 4096, torch.float32),
+              (300, 4096, 40320, torch.float32)]
     for M, K, N, dtype in cases:
         w = torch.randn(K, N, generator=gen, device="cuda") * 0.02
         qw = quantize_weight(w)
@@ -445,7 +464,11 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
         del wx
         nbytes = M * K * dtype.itemsize + K * N + N * 4 + M * N * dtype.itemsize
         flops = 2 * M * N * K
-        bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
+        bf16 = dtype == torch.bfloat16
+        # fp32 x: two TF32 products (x's hi and lo halves) at the TF32 peak
+        bounds = (dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(nbytes, flops, BF16_FLOPS)))
+                  if bf16 else split_tf32_bounds(nbytes, flops, 2))
         in_prefill = dtype == torch.bfloat16 and M in (256, VQA_PREFILL_M)
         n = per_prefill.get((K, N), 0) if in_prefill else 0
         # the record averages phase 3's prefill; 11b's is reported per case
@@ -455,26 +478,25 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
             tot[key] += serve * val
         bytes_total += serve * nbytes
         ops_total += serve * flops
-        bf16 = dtype == torch.bfloat16
+        plan = int8_plan(M, N, K, dtype)
+        main = built.get("int8_mm_bf16" if bf16 else "int8_mm_f32", {})
+        kernel = dict(registers=main.get("registers"),
+                      spill_bytes=spill_bytes(main), smem_bytes=smem[dtype])
         if not bf16 and (M, K, N) == (256, 4096, 4096):
             fp32_x = dict(shape=dict(M=M, K=K, N=N, dtype="float32"), ms=ms,
-                          plain_ms=plain, library_ms=lib, bound_ms=bms,
-                          bound_by=by, max_abs_err=err)
-        plan = int8_plan(M, N, K) if bf16 else None
-        main = built.get("int8_mm_bf16", {}) if bf16 else {}
+                          plain_ms=plain, library_ms=lib, gemm_ms=gemm,
+                          **bounds, max_abs_err=err, rel_err=rel, plan=plan,
+                          kernel=dict(name="int8_mm_f32", **kernel))
         emit("kernels", kernel="int8_matmul", **label, plan=plan,
              max_abs_err=err, rel_err=rel, tol_rel=limit, repeats_bits=True,
              launches_per_prefill=n, prefill=("phase 3 serve" if M == 256
                                               else "phase 11b VQA")
              if n else None, card=name, ms=ms, plain_ms=plain,
              library_ms=lib, library="x @ w.to(x.dtype) * scale",
-             gemm_ms=gemm, gemm="x @ w_bf16, converted before the timing",
-             bound_ms=bms, bound_by=by, tflops=flops / ms * 1e-9,
-             registers=main.get("registers"),
-             spill_bytes=spill_bytes(main) if bf16 else None,
+             gemm_ms=gemm, gemm="x @ w.to(x.dtype), converted before the timing",
+             **bounds, tflops=flops / ms * 1e-9, **kernel,
              reduce_registers=built.get("int8_mm_reduce", {}).get("registers")
-             if bf16 and plan[2] > 1 else None,
-             smem_bytes=smem if bf16 else None)
+             if plan[2] > 1 else None)
         del qw, x, got, want
     # the record is per launch, averaged over one prefill's mix of shapes
     n = sum(per_prefill.values())
@@ -483,7 +505,7 @@ def phase_int8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     record.update(bound_ms=bms, bound_by=by, max_abs_err=worst)
     emit("kernels", kernel="int8_matmul", summary="mean per launch over one "
          "8B prefill at M = 256 (phase 3, 225 launches)", card=name, **record)
-    # the fp32-x instance (int8_mm_f32, its first design), on no path
+    # the fp32-x instance (int8_mm_f32), on no path
     record["fp32_x"] = fp32_x
     return {"int8_matmul": record}
 
@@ -506,14 +528,16 @@ FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2.0 ** -5)}
 # offset (forward only: its gradient takes the mha recompute); D=256 (the
 # bf16 forward's and dq's 32-row kv tiles, dk/dv's split columns) with Sq
 # not a multiple of the 64-row blocks; a ragged chunk at an offset at D=64;
-# D=36 (element-wise staging) with S a multiple of no tile
+# D=36 (element-wise staging) with S a multiple of no tile; S=4096, twice
+# the 8B's max_seq_len (dk/dv summing over 256 q tiles, dq over 256 kv tiles)
 FLASH_CASES = [(4, 1024, 1024, 32, 128, True, 0, True),
                (2, 300, 300, 4, 64, True, 0, False),
                (2, 257, 257, 4, 88, False, 0, False),
                (2, 256, 512, 4, 128, True, 256, False),
                (2, 333, 333, 4, 256, True, 0, False),
                (1, 190, 450, 4, 64, True, 260, False),
-               (2, 100, 100, 4, 36, True, 0, False)]
+               (2, 100, 100, 4, 36, True, 0, False),
+               (1, 4096, 4096, 4, 128, True, 0, False)]
 
 
 def _pairs(Sq, Sk, causal, q_offset):
@@ -559,11 +583,11 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                 dq = TF.flash_bwd_dq(*args)
                 dk, dv = TF.flash_bwd_dkv(*args)
                 if dtype == torch.float32:    # no atomics: the same bits
-                    again = TF.flash_bwd_dkv(*args)
+                    again = (TF.flash_bwd_dq(*args), *TF.flash_bwd_dkv(*args))
                     torch.cuda.synchronize()
-                    if not (torch.equal(dk, again[0]) and torch.equal(dv, again[1])):
-                        raise AssertionError(f"flash_bwd_dkv {label}: two "
-                                             "calls differ")
+                    if not all(map(torch.equal, (dq, dk, dv), again)):
+                        raise AssertionError(f"flash_bwd_dq / flash_bwd_dkv "
+                                             f"{label}: two calls differ")
                     del again
                 want_dq = TF.flash_bwd_dq_plain(*args)
                 want_dk, want_dv = TF.flash_bwd_dkv_plain(*args)
@@ -612,10 +636,14 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
             }
             for kern, (fn, plain_fn, lib) in runs.items():
                 flops, nbytes = work[kern]
-                bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
+                # fp32: every product as three TF32 products
+                bounds = (dict(zip(("bound_ms", "bound_by"),
+                                   bound_ms(nbytes, flops, BF16_FLOPS)))
+                          if dtype == torch.bfloat16
+                          else split_tf32_bounds(nbytes, flops, 3))
                 timing = dict(ms=time_ms(fn, iters, flush),
                               plain_ms=time_ms(plain_fn, 2, flush),
-                              library_ms=lib, bound_ms=bms, bound_by=by)
+                              library_ms=lib, **bounds)
                 if dtype == torch.bfloat16 and kern == "flash_fwd":
                     # also timed as PRs 1-3 timed it
                     timing["ms_host_included"] = time_ms(fn, iters, flush,
@@ -640,8 +668,8 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
 
     # the fp32 forward (split TF32) at the training layer's shape, B=1:
     # against its plain version, timed beside SDPA in fp32 (CUTLASS's
-    # memory-efficient kernel); bounds against the fp32 peak and, as three
-    # TF32 products, against the TF32 tensor-core peak
+    # memory-efficient kernel); bound as three TF32 products at the TF32
+    # tensor-core peak, and the fp32 FMA units' apart
     B, S, H, D = 1, 1024, 32, 128
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                for _ in range(3))
@@ -653,7 +681,6 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = B * H * _pairs(S, S, True, 0)
     nbytes = 4 * B * S * H * D * 4 + B * H * S * 4
-    bms, by = bound_ms(nbytes, 2 * 2 * D * pairs, FP32_FLOPS)
     fp32 = dict(shape=dict(B=B, S=S, H=H, D=D, causal=True, dtype="float32"),
                 ms=time_ms(lambda: TF.flash_fwd(q, k, v, True, D ** -0.5), 10,
                            flush),
@@ -661,29 +688,30 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                                                             D ** -0.5), 2, flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True), 10, flush),
-                bound_ms=bms, bound_by=by,
-                bound_tf32x3_ms=bound_ms(nbytes, 3 * 2 * 2 * D * pairs,
-                                         TF32_FLOPS)[0], max_abs_err=err)
+                **split_tf32_bounds(nbytes, 2 * 2 * D * pairs, 3),
+                max_abs_err=err)
     emit("kernels", kernel="flash_fwd", what="the fp32 forward at B=1",
          library="scaled_dot_product_attention(is_causal=True), fp32",
          card=name, **fp32)
     del out, qt, kt, vt
 
-    # the fp32 dq (its first design) and dk/dv (split TF32) kernels at the
-    # same shape: against their plain versions, dk/dv also bit for bit over
-    # two calls, timed beside SDPA's fp32 backward (dq, dk and dv in one
-    # call); bounds as the bf16 rows count them, against the fp32 peak and
-    # (dk/dv) as three TF32 products
+    # the fp32 dq and dk/dv kernels (split TF32) at the same shape: against
+    # their plain versions and bit for bit over two calls, timed beside
+    # SDPA's fp32 backward (dq, dk and dv in one call), alone and as a pair;
+    # operations as the bf16 rows count them, bound as three TF32 products
+    # each, the fp32 FMA units' apart
     dout = torch.randn(B, S, H, D, generator=gen, device="cuda")
     delta = (dout * want).sum(-1).permute(0, 2, 1).contiguous()
     args = (q, k, v, dout, want_lse, delta, True, D ** -0.5)
     atol, rtol = FLASH_BWD_TOL[torch.float32]
     got = dict(flash_bwd_dq=(TF.flash_bwd_dq(*args),),
                flash_bwd_dkv=TF.flash_bwd_dkv(*args))
-    again = TF.flash_bwd_dkv(*args)
+    again = dict(flash_bwd_dq=(TF.flash_bwd_dq(*args),),
+                 flash_bwd_dkv=TF.flash_bwd_dkv(*args))
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got["flash_bwd_dkv"], again)):
-        raise AssertionError("flash_bwd_dkv fp32 B=1: two calls differ")
+    for kern, outs in got.items():
+        if not all(map(torch.equal, outs, again[kern])):
+            raise AssertionError(f"{kern} fp32 B=1: two calls differ")
     del again
     ref = dict(flash_bwd_dq=(TF.flash_bwd_dq_plain(*args),),
                flash_bwd_dkv=TF.flash_bwd_dkv_plain(*args))
@@ -704,19 +732,22 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
         top = max(r.abs().max().item() for r in ref[kern])
         if not e <= atol + rtol * top:
             raise AssertionError(f"{kern} fp32 B=1: max_abs_err {e}")
-        bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
         fp32_bwd[kern] = dict(
             shape=dict(B=B, S=S, H=H, D=D, causal=True, dtype="float32"),
             ms=time_ms(lambda: fn(*args), 10, flush),
             plain_ms=time_ms(lambda: plain_fn(*args), 2, flush),
-            library_ms=lib_bwd, bound_ms=bms, bound_by=by, max_abs_err=e)
-        if kern == "flash_bwd_dkv":
-            fp32_bwd[kern]["bound_tf32x3_ms"] = bound_ms(nbytes, 3 * flops,
-                                                         TF32_FLOPS)[0]
+            library_ms=lib_bwd, **split_tf32_bounds(nbytes, flops, 3),
+            max_abs_err=e, repeats_bits=True)
         emit("kernels", kernel=kern, what="the fp32 kernel at B=1",
              library="scaled_dot_product_attention(is_causal=True) backward, "
              "fp32, dq+dk+dv in one call", flops=flops, bytes=nbytes,
              card=name, **fp32_bwd[kern])
+    pair = time_ms(lambda: (TF.flash_bwd_dq(*args), TF.flash_bwd_dkv(*args)),
+                   10, flush)
+    emit("kernels", kernel="flash_bwd_dq+flash_bwd_dkv", what="the fp32 pair "
+         "at B=1", ms=pair, library_ms=lib_bwd, ratio_to_library=pair / lib_bwd,
+         library="scaled_dot_product_attention(is_causal=True) backward, "
+         "fp32, dq+dk+dv in one call", card=name)
     del q, k, v, dout, qt, kt, vt, gt, sdpa, want, got, ref
 
     # GQA through the dispatcher (8 query heads over 2 kv heads, repeated
@@ -3111,9 +3142,9 @@ def phase_scripts(name: str, scratch: Path) -> None:
 
 def redesigned_smem_bytes() -> dict:
     """Dynamic shared memory of one block of the redesigned kernels at the
-    main paths' shapes (head dims 88 and 128; short_mha's fp32 kernel at the
-    tokenizer training's S = 257; the bf16 int8 matmul; the W8A8 encode's
-    M = 2056), as their launchers ask."""
+    main paths' shapes (head dims 88 and 128, the flash kernels in both
+    types; short_mha's fp32 kernel at the tokenizer training's S = 257; the
+    bf16 int8 matmul; the W8A8 encode's M = 2056), as their launchers ask."""
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.ops import int8_matmul as TI
     from seed_tpu_torch.ops import kernels
@@ -3125,9 +3156,9 @@ def redesigned_smem_bytes() -> dict:
             "short_mha_f32": short.seed_short_mha_f32_plan(257, 257, 88, 1),
             **{k: flash.seed_flash_smem_bytes(i, 1, 128) for i, k in
                enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))},
-            "flash_fwd_f32": flash.seed_flash_smem_bytes(0, 0, 128),
-            "flash_bwd_dkv_f32": flash.seed_flash_smem_bytes(2, 0, 128),
-            "int8_matmul": int8.seed_int8_matmul_smem_bytes(),
+            **{k + "_f32": flash.seed_flash_smem_bytes(i, 0, 128) for i, k in
+               enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))},
+            "int8_matmul": int8.seed_int8_matmul_smem_bytes(1),
             "w8a8_matmul": w8a8.seed_w8a8_smem_bytes(2056)}
 
 
@@ -3153,7 +3184,7 @@ def main() -> None:
     record.update(phase_w8a8_kernel(name, flush, usage))
     del flush
     from seed_tpu_torch.ops import flash_attention as TF
-    # the first-design fp32 instances of rows 2 and 3: launches from here on
+    # the fp32 instances of rows 2-5, on no path: launches from here on
     int8_matmul.launches_f32 = 0
     for fn in (TF.flash_fwd, TF.flash_bwd_dq, TF.flash_bwd_dkv):
         fn.launches_f32 = 0

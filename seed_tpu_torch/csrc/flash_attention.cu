@@ -62,23 +62,25 @@
 //     warps; the scores are computed by both). The kv tiles launch in order,
 //     which is heaviest first for this kernel.
 //
-// The fp32 forward and dk/dv (flash_fwd_f32_kernel, flash_bwd_dkv_f32_kernel)
-// take the same shapes with fp32 operands on the tensor cores as split-TF32
-// products (sm90::mma_3xtf32: three mma.sync m16n8k8 tf32 products of each
-// operand's hi and lo halves, within about 3 * 2^-22 of |a b| of the fp32
-// product, where TF32 alone keeps 11 bits). Operands are split in registers
-// as their fragments leave shared memory, which holds each tile once (rows
-// of Dp + 4 floats, Dp = D rounded up to 16); scores and P stay in
-// registers. The forward takes 64 q rows over kv tiles of 32 rows, dk/dv 64
-// kv rows over q tiles of 16 (above Dp = 128 with two warps on each 16 kv
-// rows). At the fp32 training shape (B=1, H=32, S=1024, D=128, causal)
-// the forward is 8.6 GFLOP, 0.128 ms at the FMA units' 67 TFLOP/s, 0.052 ms
-// as three TF32 products at 495; dk/dv twice that.
-//
-// The fp32 dq kernel is the first design: one block owns (batch, head, one
-// square tile of 32 rows, 16 when D > 128) and streams K and V through
-// shared memory tile by tile, every product on the FMA units out of shared
-// memory, the fp32 accumulators kept there between steps.
+// The fp32 kernels (flash_fwd_f32_kernel, flash_bwd_dq_f32_kernel,
+// flash_bwd_dkv_f32_kernel) take the same shapes with fp32 operands on the
+// tensor cores as split-TF32 products (sm90::mma_3xtf32: three mma.sync
+// m16n8k8 tf32 products of each operand's hi and lo halves, within about
+// 3 * 2^-22 of |a b| of the fp32 product, where TF32 alone keeps 11 bits).
+// Operands are split in registers as their fragments leave shared memory,
+// which holds each tile once (rows of Dp + 4 floats, Dp = D rounded up to
+// 16); scores, P and dS stay in registers. The forward takes 64 q rows over
+// kv tiles of 32 rows, dq 64 q rows over kv tiles of 16, dk/dv 64 kv rows
+// over q tiles of 16 (above Dp = 128 with two warps on each 16 kv rows).
+// dk/dv sums each q tile's products in a fragment of their own and adds it
+// to dK and dV in round-to-nearest (sm90::add_rn): with one tensor-core
+// chain over every q tile its error grew with the sequence, past 1e-4 of
+// the plain version at S = 2048 and 4096 causal on the H100 (the early
+// keys, whose first terms dwarf the rest), where dq and the forward stayed
+// within 1.1e-5 up to S = 8192 with theirs.
+// At the fp32 training shape (B=1, H=32, S=1024, D=128, causal) the forward
+// is 8.6 GFLOP, 0.128 ms at the FMA units' 67 TFLOP/s, 0.052 ms as three
+// TF32 products at 495; dq 1.5 times that, dk/dv twice.
 //
 // q, k, v and dO are read in place as [B, S, H, D] through element strides,
 // ragged S and D are masked while staging (rows past the end and columns
@@ -102,144 +104,9 @@ constexpr float kMaskValue = (float)(-0.7 * (double)FLT_MAX);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// ------------------------------------------------ fp32 dq kernel (first design)
-
-constexpr int kThreads = 256;
-// Row padding of the fp32 shared tiles: an odd row stride, so lanes reading
-// down a column hit distinct banks.
-constexpr int kPad = 1;
-
-__host__ __device__ inline size_t region(size_t bytes) { return (bytes + 31) / 32 * 32; }
-
-// Hands out 32-byte aligned pieces of the block's dynamic shared memory.
-struct Carver {
-  unsigned char* p;
-  __device__ float* take(int n) {
-    float* out = reinterpret_cast<float*>(p);
-    p += region((size_t)n * sizeof(float));
-    return out;
-  }
-};
-
-// C[M][N] (+)= sum_k A(m, k) * B(k, n), every operand in shared memory.
-//   kARow: A(m, k) = A[m * lda + k], else A[k * lda + m]
-//   kBRow: B(k, n) = B[k * ldb + n], else B[n * ldb + k]
-// Each thread owns four rows of one output column; fused multiply-adds.
-template <bool kARow, bool kBRow>
-__device__ __forceinline__ void tile_mm(float* C, int ldc, const float* A, int lda,
-                                        const float* B, int ldb, int M, int N, int K,
-                                        bool accumulate) {
-  const int groups = (M / 4) * N;
-  for (int idx = threadIdx.x; idx < groups; idx += kThreads) {
-    const int mb = idx / N, n = idx - mb * N, m0 = mb * 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < K; ++k) {
-      const float bv = kBRow ? B[k * ldb + n] : B[n * ldb + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av = kARow ? A[(m0 + i) * lda + k] : A[k * lda + m0 + i];
-        acc[i] = fmaf(av, bv, acc[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* c = C + (m0 + i) * ldc + n;
-      *c = accumulate ? *c + acc[i] : acc[i];
-    }
-  }
-}
-
-// Rows [row0, row0 + tile) of one (batch, head) of x[B, S, H, D] into
-// dst[tile][ld]: rows from `rows` on and columns from D up to Dp are zero.
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src, long long row_stride,
-                                      int row0, int rows, int tile, int D, int Dp) {
-  for (int i = threadIdx.x; i < tile * Dp; i += kThreads) {
-    const int r = i / Dp, d = i - r * Dp;
-    dst[r * ld + d] = (row0 + r < rows && d < D) ? src[(long long)(row0 + r) * row_stride + d]
-                                                 : 0.f;
-  }
-}
-
-// Per-row fp32 values (lse, delta) of rows [row0, row0 + tile), zero past `rows`.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, int row0, int rows,
-                                           int tile) {
-  for (int i = threadIdx.x; i < tile; i += kThreads)
-    dst[i] = (row0 + i < rows) ? src[row0 + i] : 0.f;
-}
-
-__device__ __forceinline__ float masked_score(float s, float scale, int causal, int row,
-                                              int col, int Sk) {
-  s *= scale;
-  return ((causal && col > row) || col >= Sk) ? kMaskValue : s;
-}
-
 struct Strides {
   long long b, s, h;
 };
-
-// ------------------------------------------------------- backward dq, fp32
-// grid (q tiles, H, B). lse and delta are fp32 [B, H, Sq]; dq is contiguous
-// [B, Sq, H, D]. No q_offset: the caller takes another route for it.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int Sq, int Sk, int H, int D, int Dp, int tile,
-                    Strides qs, Strides ks, Strides vs, Strides gs, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldt = Dp + kPad, lds = tile + kPad;
-  Carver cv{smem_raw};
-  float* Qs = cv.take(tile * ldt);
-  float* Gs = cv.take(tile * ldt);       // dO
-  float* Ks = cv.take(tile * ldt);
-  float* Vs = cv.take(tile * ldt);
-  float* dSs = cv.take(tile * lds);
-  float* Ss = cv.take(tile * lds);
-  float* dPs = cv.take(tile * lds);
-  float* dQs = cv.take(tile * ldt);
-  float* lses = cv.take(tile);
-  float* deltas = cv.take(tile);
-
-  const int b = blockIdx.z, h = blockIdx.y, r0 = (int)blockIdx.x * tile;
-  const int tid = threadIdx.x;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const long long row_base = ((long long)b * H + h) * Sq;
-
-  stage(Qs, ldt, q + b * qs.b + h * qs.h, qs.s, r0, Sq, tile, D, Dp);
-  stage(Gs, ldt, dout + b * gs.b + h * gs.h, gs.s, r0, Sq, tile, D, Dp);
-  stage_rows(lses, lse + row_base, r0, Sq, tile);
-  stage_rows(deltas, delta + row_base, r0, Sq, tile);
-  for (int i = tid; i < tile * ldt; i += kThreads) dQs[i] = 0.f;
-
-  const int kv_tiles = (Sk + tile - 1) / tile;
-  const int hi = causal ? min(kv_tiles, (int)blockIdx.x + 1) : kv_tiles;
-
-  for (int j = 0; j < hi; ++j) {
-    const int c0 = j * tile;
-    __syncthreads();
-    stage(Ks, ldt, kb, ks.s, c0, Sk, tile, D, Dp);
-    stage(Vs, ldt, vb, vs.s, c0, Sk, tile, D, Dp);
-    __syncthreads();
-    tile_mm<true, false>(Ss, lds, Qs, ldt, Ks, ldt, tile, tile, Dp, false);
-    tile_mm<true, false>(dPs, lds, Gs, ldt, Vs, ldt, tile, tile, Dp, false);
-    __syncthreads();
-    for (int i = tid; i < tile * tile; i += kThreads) {
-      const int r = i / tile, c = i - r * tile;
-      const float s = masked_score(Ss[r * lds + c], scale, causal, r0 + r, c0 + c, Sk);
-      const float p = expf(s - lses[r]);
-      dSs[r * lds + c] = p * (dPs[r * lds + c] - deltas[r]);
-    }
-    __syncthreads();
-    tile_mm<true, true>(dQs, ldt, dSs, lds, Ks, ldt, tile, Dp, tile, true);
-  }
-  __syncthreads();
-
-  for (int i = tid; i < tile * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    if (r0 + r < Sq) dq[(((long long)b * Sq + r0 + r) * H + h) * D + d] = dQs[r * ldt + d] * scale;
-  }
-}
 
 // ------------------------------------------------ bf16 kernels (mma.sync)
 
@@ -794,17 +661,21 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // memory, so shared memory holds each tile once. Shared rows are Dp + 4
 // floats; fragments come through scalar loads (ldmatrix moves 16-bit pairs)
 // free of bank conflicts. A C fragment of scores becomes the A fragment of
-// the next product in registers (sm90::c_to_a_tf32), V's, dO's and Q's rows
-// read in its k order.
+// the next product in registers (sm90::c_to_a_tf32), V's, dO's, Q's and
+// K's rows read in its k order.
 
 // kv tile rows of the fp32 forward: the Q tile and a two-stage ring of K
 // and V fit two blocks an SM up to Dp = 128 (101,376 bytes) and one above.
 constexpr int kF32KvTile = 32;
+// kv tile rows of the fp32 dq kernel: Q, dO and a two-stage ring of K and V
+// fit two blocks an SM up to Dp = 128 (101,376 bytes; 32-row kv tiles would
+// leave room for one) and one above (199,680 at Dp = 256).
+constexpr int kF32DqKvTile = 16;
 // q tile rows of the fp32 dk/dv kernel: K, V and a two-stage ring of Q and
 // dO fit two blocks an SM up to Dp = 128 (101,632 bytes; 32-row q tiles
 // would leave room for one) and one above (199,936 at Dp = 256).
 constexpr int kF32QTile = 16;
-// Both fp32 kernels declare at least one block an SM: without it ptxas
+// The fp32 kernels declare at least one block an SM: without it ptxas
 // trades registers for a third block that shared memory does not allow,
 // and spills.
 
@@ -976,6 +847,145 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------ backward dq, fp32
+// grid (H, B, q tiles). lse and delta are fp32 [B, H, Sq]; dq is contiguous
+// [B, Sq, H, D]. The shape of flash_bwd_dq_bf16_kernel with 16-row kv tiles
+// and scores in base e. No q_offset: the caller takes another route for it.
+template <int Dp>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dq, int Sq, int Sk, int H, int D, Strides qs,
+                        Strides ks, Strides vs, Strides gs, float scale, int causal, int vec) {
+  constexpr int KT = kF32DqKvTile;
+  constexpr int ld = Dp + sm90::kF32RowPad;
+  constexpr int NS = KT / 8;             // n8 tiles of a score row block; k8 steps of dS K
+  constexpr int ND = Dp / 8;             // n8 tiles of the dQ row block; k8 steps of Q K^T
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Gs = Qs + kMmaRows * ld;        // dO
+  float* Ks = Gs + kMmaRows * ld;        // kStages stages of KT rows
+  float* Vs = Ks + kStages * KT * ld;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int r0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * kMmaRows;   // heaviest first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow0 = warp * 16;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+
+  const int kv_tiles = (Sk + KT - 1) / KT;
+  const int hi = causal ? min(kv_tiles, (r0 + kMmaRows - 1) / KT + 1) : kv_tiles;
+
+  auto stage_kv = [&](int j) {
+    const int at = (j % kStages) * KT * ld;
+    sm90::stage_tile_f32<Dp, kMmaThreads>(Ks + at, kb, ks.s, j * KT, Sk, KT, D, vec);
+    sm90::stage_tile_f32<Dp, kMmaThreads>(Vs + at, vb, vs.s, j * KT, Sk, KT, D, vec);
+  };
+  sm90::stage_tile_f32<Dp, kMmaThreads>(Qs, q + b * qs.b + h * qs.h, qs.s, r0, Sq, kMmaRows,
+                                        D, vec);
+  sm90::stage_tile_f32<Dp, kMmaThreads>(Gs, dout + b * gs.b + h * gs.h, gs.s, r0, Sq,
+                                        kMmaRows, D, vec);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < hi) stage_kv(i);
+    sm90::cp_async_commit();
+  }
+
+  // this thread's two rows (g and g + 8 of the warp's 16): lse and delta
+  // (rows past Sq meet zero q and dO rows, so their ds is 0)
+  const long long row_base = ((long long)b * H + h) * Sq;
+  float ls[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wrow0 + g + 8 * i;
+    ls[i] = row < Sq ? lse[row_base + row] : 0.f;
+    dlt[i] = row < Sq ? delta[row_base + row] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < hi; ++j) {
+    sm90::cp_async_wait<kStages - 2>();
+    __syncthreads();     // tile j visible; every warp is past tile j - 1
+    if (j + kStages - 1 < hi) stage_kv(j + kStages - 1);
+    sm90::cp_async_commit();
+    const float* Kt = Ks + (j % kStages) * KT * ld;
+    const float* Vt = Vs + (j % kStages) * KT * ld;
+
+    // S = Q K^T and dP = dO V^T
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t qh[4], ql[4], gh[4], gl[4];
+      sm90::load_a_tf32(qh, ql, Qs, ld, wrow0, kk * 8, lane);
+      sm90::load_a_tf32(gh, gl, Gs, ld, wrow0, kk * 8, lane);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_nk_tf32(bh, bl, Kt, ld, n * 8, kk * 8, lane);
+        sm90::mma_3xtf32(s[n], qh, ql, bh, bl);
+        sm90::load_b_nk_tf32(bh, bl, Vt, ld, n * 8, kk * 8, lane);
+        sm90::mma_3xtf32(dp[n], gh, gl, bh, bl);
+      }
+    }
+
+    // scores times the scale, masked only where the tile crosses the
+    // diagonal or the keys' end; then ds = p (dp - delta) in place of dp
+    const int c0 = j * KT;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+    if (c0 + KT > Sk || (causal && c0 + KT - 1 > r0 + wrow0)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + n * 8 + 2 * t + (e & 1);
+          const int row = r0 + wrow0 + g + (e >> 1) * 8;
+          if ((causal && col > row) || col >= Sk) s[n][e] = kMaskValue;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(__fsub_rn(s[n][e], ls[e >> 1]));
+        dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], dlt[e >> 1]));
+      }
+
+    // dQ += dS K, dS's C fragments as the A operand, K's rows in their k order
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      uint32_t ah[4], al[4];
+      sm90::c_to_a_tf32(ah, al, dp[kk]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh[2], bl[2];
+        sm90::load_b_kn_tf32(bh, bl, Kt, ld, kk * 8, n * 8, lane);
+        sm90::mma_3xtf32(acc[n], ah, al, bh, bl);
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + wrow0 + g + 8 * i;
+    if (row < Sq)
+      store_row_f32(dq + (((long long)b * Sq + row) * H + h) * D, acc, i, scale, 0, D, t);
+  }
+}
+
 // -------------------------------------------------- backward dk/dv, fp32
 // grid (H, B, kv tiles). dk, dv are contiguous [B, Sk, H, D]. The shape of
 // flash_bwd_dkv_bf16_kernel with fp32 q tiles of 16 rows and scores in base
@@ -1113,25 +1123,35 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
       }
     }
 
-    // dV += P^T dO and dK += dS^T Q over this warp's columns, P^T and dS^T
-    // from their C fragments
+    // dV += P^T dO, then dK += dS^T Q, over this warp's columns, P^T and
+    // dS^T from their C fragments; the tile's products are summed apart and
+    // added in round-to-nearest (sm90::add_rn)
+    uint32_t ah[NQ][4], al[NQ][4];
 #pragma unroll
-    for (int kk = 0; kk < NQ; ++kk) {
-      uint32_t ah[4], al[4];
-      sm90::c_to_a_tf32(ah, al, s[kk]);
+    for (int kk = 0; kk < NQ; ++kk) sm90::c_to_a_tf32(ah[kk], al[kk], s[kk]);
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
+    for (int n = 0; n < NO; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
         uint32_t bh[2], bl[2];
         sm90::load_b_kn_tf32(bh, bl, Gt, ld, kk * 8, col0 + n * 8, lane);
-        sm90::mma_3xtf32(dva[n], ah, al, bh, bl);
+        sm90::mma_3xtf32(part, ah[kk], al[kk], bh, bl);
       }
-      sm90::c_to_a_tf32(ah, al, dp[kk]);
+      sm90::add_rn(dva[n], part);
+    }
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
+    for (int kk = 0; kk < NQ; ++kk) sm90::c_to_a_tf32(ah[kk], al[kk], dp[kk]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NQ; ++kk) {
         uint32_t bh[2], bl[2];
         sm90::load_b_kn_tf32(bh, bl, Qt, ld, kk * 8, col0 + n * 8, lane);
-        sm90::mma_3xtf32(dka[n], ah, al, bh, bl);
+        sm90::mma_3xtf32(part, ah[kk], al[kk], bh, bl);
       }
+      sm90::add_rn(dka[n], part);
     }
   }
   sm90::cp_async_wait<0>();
@@ -1150,19 +1170,16 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 
 int round16(int d) { return (d + 15) / 16 * 16; }
 
-// Square tile of the fp32 dq kernel by head dim.
-int fp32_tile(int D) { return D <= 128 ? 32 : 16; }
-
 // Rows of every tile the kernels walk, by io type (0 fp32, 1 bf16), head
 // dim and `which`: 0 forward q tile, 1 forward kv tile, 2 dq's q rows, 3
 // dq's kv tile, 4 dk/dv's kv rows, 5 dk/dv's q tile.
 int tile_rows(int dtype, int D, int which) {
   if (dtype != 1) {
     switch (which) {
-      case 0: case 4: return kMmaRows;
       case 1: return kF32KvTile;
+      case 3: return kF32DqKvTile;
       case 5: return kF32QTile;
-      default: return fp32_tile(D);
+      default: return kMmaRows;
     }
   }
   const int Dp = sm90::padded_head_dim(D);
@@ -1210,14 +1227,6 @@ template <typename F> int with_f32_dim(int D, F f) {
   }
 }
 
-// Dynamic shared memory of the first-design dq kernel: `n_d` tiles of Dp
-// columns (operands and accumulators), `n_s` tiles of `tile` columns (scores)
-// and two row vectors.
-size_t fp32_smem_bytes(int tile, int Dp, int n_d, int n_s) {
-  return n_d * region(sizeof(float) * tile * (Dp + kPad)) +
-         n_s * region(sizeof(float) * tile * (tile + kPad)) + 2 * region(sizeof(float) * tile);
-}
-
 // Dynamic shared memory of the bf16 kernels: 0 forward, 1 dq, 2 dk/dv.
 template <int Dp> size_t bf16_smem_bytes(int kernel) {
   constexpr size_t row = sizeof(bf16) * (Dp + sm90::kRowPad);
@@ -1227,10 +1236,12 @@ template <int Dp> size_t bf16_smem_bytes(int kernel) {
          sizeof(float) * 2 * kStages * dkv_q_tile(Dp);
 }
 
-// Dynamic shared memory of the fp32 split-TF32 kernels: 0 forward, 2 dk/dv.
+// Dynamic shared memory of the fp32 split-TF32 kernels: 0 forward, 1 dq,
+// 2 dk/dv.
 template <int Dp> size_t f32_smem_bytes(int kernel) {
   constexpr size_t row = sizeof(float) * (Dp + sm90::kF32RowPad);
   if (kernel == 0) return row * (kMmaRows + 2 * kStages * kF32KvTile);
+  if (kernel == 1) return row * (2 * kMmaRows + 2 * kStages * kF32DqKvTile);
   return row * (2 * kMmaRows + 2 * kStages * kF32QTile) + sizeof(float) * 2 * kStages * kF32QTile;
 }
 
@@ -1238,7 +1249,6 @@ int smem_bytes_for(int kernel, int dtype, int D) {
   if (dtype == 1)
     return with_padded_dim(
         D, [&](auto dp) { return (int)bf16_smem_bytes<decltype(dp)::value>(kernel); });
-  if (kernel == 1) return (int)fp32_smem_bytes(fp32_tile(D), round16(D), 5, 3);
   return with_f32_dim(D,
                       [&](auto dp) { return (int)f32_smem_bytes<decltype(dp)::value>(kernel); });
 }
@@ -1261,26 +1271,13 @@ struct Args {
 #define SEED_F32(p) static_cast<const float*>(p)
 #define SEED_BF16(p) static_cast<const bf16*>(p)
 
-int launch_dq_fp32(const Args& a) {
-  const int tile = fp32_tile(a.D), Dp = round16(a.D);
-  const size_t smem = smem_bytes_for(1, 0, a.D);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + tile - 1) / tile, a.H, a.B);
-  flash_bwd_dq_kernel<<<grid, kThreads, smem, a.st>>>(
-      SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
-      SEED_F32(a.delta), static_cast<float*>(a.o0), a.Sq, a.Sk, a.H, a.D, Dp, tile, a.qs, a.ks,
-      a.vs, a.gs, a.scale, a.causal);
-  return (int)cudaGetLastError();
-}
-
-// The fp32 forward (kernel 0) or dk/dv (kernel 2).
 template <int Dp> int launch_f32(int kernel, const Args& a) {
   const int tiles = ((kernel == 2 ? a.Sk : a.Sq) + kMmaRows - 1) / kMmaRows;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = f32_smem_bytes<Dp>(kernel);
-  cudaError_t err = kernel == 0 ? allow_smem(flash_fwd_f32_kernel<Dp>, smem)
-                                : allow_smem(flash_bwd_dkv_f32_kernel<Dp>, smem);
+  cudaError_t err = kernel == 0   ? allow_smem(flash_fwd_f32_kernel<Dp>, smem)
+                    : kernel == 1 ? allow_smem(flash_bwd_dq_f32_kernel<Dp>, smem)
+                                  : allow_smem(flash_bwd_dkv_f32_kernel<Dp>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.H, a.B, tiles);
   float* o0 = static_cast<float*>(a.o0);
@@ -1289,6 +1286,11 @@ template <int Dp> int launch_f32(int kernel, const Args& a) {
     flash_fwd_f32_kernel<Dp><<<grid, kMmaThreads, smem, a.st>>>(
         SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), o0, o1, a.Sq, a.Sk, a.H, a.D, a.qs, a.ks,
         a.vs, a.scale, a.causal, a.q_offset, a.vec);
+  else if (kernel == 1)
+    flash_bwd_dq_f32_kernel<Dp><<<grid, kMmaThreads, smem, a.st>>>(
+        SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
+        SEED_F32(a.delta), o0, a.Sq, a.Sk, a.H, a.D, a.qs, a.ks, a.vs, a.gs, a.scale, a.causal,
+        a.vec);
   else
     flash_bwd_dkv_f32_kernel<Dp><<<grid, kMmaThreads * dkv_split(Dp), smem, a.st>>>(
         SEED_F32(a.q), SEED_F32(a.k), SEED_F32(a.v), SEED_F32(a.g), SEED_F32(a.lse),
@@ -1332,10 +1334,8 @@ int launch(int kernel, int dtype, const Args& a) {
   if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.H < 1 || a.D < 1 || a.D > 256 || a.H > 65535 ||
       a.B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (kernel == 1) return launch_dq_fp32(a);
+  if (dtype == 0)
     return with_f32_dim(a.D, [&](auto dp) { return launch_f32<decltype(dp)::value>(kernel, a); });
-  }
   return with_padded_dim(a.D, [&](auto dp) { return launch_bf16<decltype(dp)::value>(kernel, a); });
 }
 
@@ -1347,8 +1347,8 @@ Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i
 // `strides` holds (batch, sequence, head) element strides of q, k, v and, for
 // the backward kernels, dO, in that order; the head dim has a unit stride.
 // `vec` says that a call may move 16 bytes at a time (see sm90::stage_tile
-// and sm90::stage_tile_f32; the fp32 dq kernel ignores it). Outputs are contiguous [B, S, H, D]; lse and delta are
-// fp32 [B, H, Sq]. Each launch returns its cudaError_t (0 on success).
+// and sm90::stage_tile_f32). Outputs are contiguous [B, S, H, D]; lse and
+// delta are fp32 [B, H, Sq]. Each launch returns its cudaError_t (0 on success).
 
 // Rows of the tiles the kernels walk (tile_rows above): the wrapper's mirror.
 extern "C" int seed_flash_tile(int dtype, int D, int which) { return tile_rows(dtype, D, which); }

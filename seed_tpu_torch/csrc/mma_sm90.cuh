@@ -5,9 +5,9 @@
 // ldmatrix (plain and .trans) for the operands, cp.async copies of 16 bytes
 // into shared memory, and the conversion of an fp32 accumulator fragment to
 // a bf16 A operand without a trip through shared memory. At the end, the
-// split-TF32 primitives of flash_attention.cu's fp32 forward and dk/dv
-// kernels (mma.sync m16n8k8 tf32, fragments loaded and split from fp32
-// tiles).
+// split-TF32 primitives of flash_attention.cu's fp32 kernels and of
+// int8_matmul.cu's fp32-x kernel (mma.sync m16n8k8 tf32, fragments loaded
+// and split from fp32 tiles).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 (4 x b32): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -239,6 +239,29 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)
   mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
   mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
   mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// D (+)= A * B where every B value is a tf32 value exactly (an int8 weight
+// in fp32: at most 8 significant bits, where tf32 keeps 11): A split, B
+// whole, two TF32 products, the small first. A tf32 x tf32 product is exact
+// in fp32, so the only error is A's split residue: a product within 2^-22
+// of |a b| of the fp32 one.
+__device__ __forceinline__ void mma_2xtf32_exact_b(float (&d)[4], const uint32_t (&a_hi)[4],
+                                                   const uint32_t (&a_lo)[4],
+                                                   const uint32_t (&b)[2]) {
+  mma_tf32(d, a_lo, b[0], b[1]);
+  mma_tf32(d, a_hi, b[0], b[1]);
+}
+
+// d += c in round-to-nearest fp32 adds, c a C fragment of a few products
+// accumulated on the tensor cores. A kernel whose sums run over a whole
+// sequence keeps each tile's tensor-core chain apart and adds the tiles
+// here: on the H100 one chain over every tile drifted past the fp32 limits
+// (2,048-row dk/dv over 1e-4, K = 11008 over 1e-5) where the same sums
+// added a tile at a time held them.
+__device__ __forceinline__ void add_rn(float (&d)[4], const float (&c)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], c[e]);
 }
 
 // Split A fragment of the 16x8 block at (row0, col0) of a row-major fp32 tile.

@@ -268,11 +268,6 @@ _FLASH_SIGNATURES = {
 }
 
 
-def _fp32_tile(head_dim: int) -> int:
-    """The square tile of the fp32 dq kernel (``fp32_tile`` there)."""
-    return 32 if head_dim <= 128 else 16
-
-
 def fwd_tiles(dtype: torch.dtype, head_dim: int) -> Tuple[int, int]:
     """(q tile, kv tile) rows of the forward kernel (``tile_rows`` 0 and 1
     in csrc/flash_attention.cu). Both io types: 64 q rows (4 warps of 16).
@@ -292,14 +287,14 @@ def bwd_tiles(dtype: torch.dtype, head_dim: int
     kernel) (``tile_rows`` 2-5 in csrc/flash_attention.cu). bf16: blocks own
     64 rows; dq streams kv tiles of 64 rows up to D = 128 and 32 above (the
     dQ accumulator takes the registers), dk/dv streams q tiles of 64 rows up
-    to D = 64 and 32 above (dK and dV take them). fp32: dq keeps one square
-    tile; dk/dv blocks own 64 kv rows over q tiles of 16 rows
-    (``kF32QTile``: two blocks an SM up to D = 128). The plain versions sum
-    in these tiles' order and stop where the kernels' causal bounds do."""
+    to D = 64 and 32 above (dK and dV take them). fp32: dq blocks own 64 q
+    rows over kv tiles of 16 rows (``kF32DqKvTile``), dk/dv blocks 64 kv
+    rows over q tiles of 16 rows (``kF32QTile``), at every D: two blocks an
+    SM up to D = 128. The plain versions sum in these tiles' order and stop
+    where the kernels' causal bounds do."""
     if dtype == torch.bfloat16:
         return (64, 64 if head_dim <= 128 else 32), (64, 64 if head_dim <= 64 else 32)
-    t = _fp32_tile(head_dim)
-    return (t, t), (64, 16)
+    return (64, 16), (64, 16)
 
 
 def _flash_lib(dtype: torch.dtype, head_dim: int):

@@ -8,8 +8,8 @@
 to x's type on chip, so device memory only ever holds them as int8. On a CPU
 tensor it runs ``int8_matmul_plain``; on a CUDA tensor it launches the kernel
 or raises. ``layers.linear`` routes to it under seed_tpu's ``can_use_kernel``.
-``int8_plan`` picks the bf16 kernel's tile and its split of K (the 8B's
-prefill shapes have too few output tiles to fill the card on their own).
+``int8_plan`` picks the kernel's tile and split of K (the 8B's prefill
+shapes have too few output tiles to fill the card on their own).
 
 ``w8a8_matmul`` is the hand-written kernel that replaces seed_tpu's
 ``_w8a8_kernel`` (csrc/w8a8_matmul.cu): int8 activations times int8 weights on
@@ -32,15 +32,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "seed_int8_matmul": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p]),
-    "seed_int8_matmul_smem_bytes": [],
+    "seed_int8_matmul_smem_bytes": [ctypes.c_int],
 }
 
-# Launch plan of csrc/int8_matmul.cu. bf16 x: one 128 x 128 tile, two blocks
-# resident per SM; fp32 x: the FMA kernel's 64 x 64 tile, never split.
+# Launch plan of csrc/int8_matmul.cu: two blocks resident per SM; bf16 x
+# (int8_mm_bf16) on 128 x 128 tiles, fp32 x (int8_mm_f32) on 64 x 128.
 SMS = 132                  # streaming multiprocessors of the H100 SXM
 BLOCKS_PER_SM = 2
-BF16_TILE = (128, 128)
-F32_TILE = (64, 64)
+TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 128)}
 K_CHUNK = 128              # a split covers whole chunks of K
 MAX_SPLIT = 8
 _W8A8_SIGNATURES = {
@@ -59,8 +58,10 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return (acc * scale.float()).to(x.dtype)
 
 
-def int8_plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
-    """(tile_m, tile_n, split) of the bf16 kernel for x [M, K] @ w [K, N].
+def int8_plan(M: int, N: int, K: int, dtype: torch.dtype
+              ) -> Tuple[int, int, int]:
+    """(tile_m, tile_n, split) of the kernel for x [M, K] @ w [K, N] with
+    x of ``dtype`` (its tile: :data:`TILES`).
 
     When the output tiles fall short of one wave (two blocks on each of the
     132 SMs), K is split into runs of whole 128-wide chunks, each run a block
@@ -68,7 +69,7 @@ def int8_plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
     on a tie, at most 8 and at most one run per chunk. Each split writes an
     fp32 partial (:func:`int8_workspace`); a second kernel sums them in split
     order."""
-    tile_m, tile_n = BF16_TILE
+    tile_m, tile_n = TILES[dtype]
     tiles = -(-M // tile_m) * (N // tile_n)
     slots = SMS * BLOCKS_PER_SM
     if tiles >= slots:
@@ -96,8 +97,9 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     """x [M, K] (bf16/f32), w_q [K, N] int8, scale [N] f32 -> [M, N] x.dtype.
 
     CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
-    kernel of csrc/int8_matmul.cu (bf16 x: on :func:`int8_plan`'s tile and
-    split) or raise."""
+    kernel of csrc/int8_matmul.cu on :func:`int8_plan`'s tile and split of
+    K (bf16 x: bf16 tensor-core products; fp32 x: two TF32 products, x's
+    hi and lo halves against the exact int8 weight) or raise."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q, scale)
     if x.device.type != "cuda":
@@ -121,10 +123,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("int8_matmul: x, w_q and scale must be contiguous")
     if x.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError("int8_matmul: x and w_q must be 16-byte aligned")
-    if x.dtype == torch.bfloat16:
-        tile_m, tile_n, split = int8_plan(M, N, K)
-    else:
-        (tile_m, tile_n), split = F32_TILE, 1
+    tile_m, tile_n, split = int8_plan(M, N, K, x.dtype)
     lib = kernels.load("int8_matmul", _SIGNATURES)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     workspace = torch.empty(int8_workspace(M, N, split), dtype=torch.float32,
@@ -143,7 +142,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
 
 
 int8_matmul.launches = 0
-int8_matmul.launches_f32 = 0     # of them, the fp32-x kernel (int8_mm_f32)
+int8_matmul.launches_f32 = 0     # of them, with fp32 x (int8_mm_f32)
 
 
 def _pick_block(dim: int, prefer: int) -> Optional[int]:

@@ -120,9 +120,10 @@ def _int8_inputs(gen, M, K, N, dtype):
 def test_int8_matmul_kernel_matches_plain(gen, dtype, M, K, N):
     """Tolerance relative to max|y|: fp32 1e-5, bf16 2**-7."""
     x, wq, sc = _int8_inputs(gen, M, K, N, dtype)
-    before = int8_matmul.launches
+    before = (int8_matmul.launches, int8_matmul.launches_f32)
     got = int8_matmul(x, wq, sc)
-    assert int8_matmul.launches == before + 1
+    assert (int8_matmul.launches, int8_matmul.launches_f32) == (
+        before[0] + 1, before[1] + (dtype == torch.float32))
     want = int8_matmul_plain(x, wq, sc)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     err = (got.float() - want.float()).abs().max().item()
@@ -131,33 +132,49 @@ def test_int8_matmul_kernel_matches_plain(gen, dtype, M, K, N):
 
 def _plan_split(monkeypatch, split):
     """Make the wrapper launch with ``split`` in place of int8_plan's."""
-    monkeypatch.setattr(TI, "int8_plan", lambda M, N, K: (*TI.BF16_TILE, split))
+    monkeypatch.setattr(TI, "int8_plan",
+                        lambda M, N, K, dtype: (*TI.TILES[dtype], split))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("split", range(1, TI.MAX_SPLIT + 1))
-def test_int8_matmul_every_split_matches_plain(gen, monkeypatch, split):
+def test_int8_matmul_every_split_matches_plain(gen, monkeypatch, split, dtype):
     """K = 11008 (86 chunks of 128: ragged runs unless the split divides
-    86) with a ragged M, under every split the plan can choose; bf16, 2**-7
-    of max|y|."""
-    x, wq, sc = _int8_inputs(gen, 300, 11008, 256, torch.bfloat16)
+    86) with a ragged M, under every split the plan can choose; relative to
+    max|y|, fp32 1e-5, bf16 2**-7."""
+    x, wq, sc = _int8_inputs(gen, 300, 11008, 256, dtype)
     _plan_split(monkeypatch, split)
     got = int8_matmul(x, wq, sc)
     want = int8_matmul_plain(x, wq, sc)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
 
 
-def test_int8_matmul_refuses_a_bad_plan(gen, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(256, 4096, 4096), (300, 11008, 256)])
+def test_int8_matmul_repeats_bit_for_bit(gen, dtype, M, K, N):
+    """No atomics, and the split partials summed in split order: two calls
+    give the same bits, split (4096 x 4096 at M = 256) or not."""
+    x, wq, sc = _int8_inputs(gen, M, K, N, dtype)
+    first, second = int8_matmul(x, wq, sc), int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_refuses_a_bad_plan(gen, monkeypatch, dtype):
     """The C entry point checks the plan: no split of zero, no run shorter
-    than one 128-wide chunk, only the built tile."""
-    x, wq, sc = _int8_inputs(gen, 256, 512, 384, torch.bfloat16)
+    than one 128-wide chunk, only the tile built for x's type."""
+    x, wq, sc = _int8_inputs(gen, 256, 512, 384, dtype)
     for split in (0, 5):
         _plan_split(monkeypatch, split)
         with pytest.raises(RuntimeError, match="cudaError_t"):
             int8_matmul(x, wq, sc)
-    monkeypatch.setattr(TI, "int8_plan", lambda M, N, K: (64, 128, 1))
-    with pytest.raises(RuntimeError, match="cudaError_t"):
-        int8_matmul(x, wq, sc)
+    for tile in {(64, 64), (64, 128), (128, 128)} - {TI.TILES[dtype]}:
+        monkeypatch.setattr(TI, "int8_plan", lambda M, N, K, dtype: (*tile, 1))
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            int8_matmul(x, wq, sc)
 
 
 # the four encoder shapes at B=8 (M = 8 x 257), the four 8B shapes at M = 256,
@@ -284,15 +301,19 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, Sq, Sk, H, D, causal, off):
             assert err <= 2.0 ** -5 * want.float().abs().max().item()
 
 
-# fp32 only (Sq, Sk, D, causal, q_offset): the split-TF32 forward and dk/dv
-# at the head dims 36 (padded to 48), 64, 88 (96), 128 and 256, ragged Sq and
+# fp32 only (Sq, Sk, D, causal, q_offset): the split-TF32 kernels at the
+# head dims 36 (padded to 48), 64, 88 (96), 128 and 256, ragged Sq and
 # Sk against the 64-row blocks and the 32-row kv / 16-row q tiles, chunks at
-# an offset (forward only), non-causal, and D=30 (element-wise staging)
+# an offset (forward only), non-causal, D=30 (element-wise staging), and
+# long sequences: SEED-LLaMA-8B's max_seq_len (2048) and twice it, where dq
+# sums over 256 kv tiles and dk/dv over 256 q tiles
 F32_FLASH_CASES = [(300, 300, 36, True, 0), (111, 111, 64, True, 0),
                    (257, 257, 88, False, 0), (1024, 1024, 128, True, 0),
                    (333, 333, 256, True, 0), (190, 450, 128, True, 260),
                    (100, 356, 88, True, 256), (150, 97, 256, False, 0),
-                   (77, 77, 36, False, 0), (130, 130, 30, True, 0)]
+                   (77, 77, 36, False, 0), (130, 130, 30, True, 0),
+                   (2048, 2048, 128, True, 0), (4096, 4096, 128, True, 0),
+                   (4096, 4096, 128, False, 0)]
 
 
 @pytest.mark.parametrize("Sq,Sk,D,causal,off", F32_FLASH_CASES)
@@ -318,6 +339,37 @@ def test_fp32_flash_fwd_and_dkv_match_plain(gen, Sq, Sk, D, causal, off):
         assert (dv - want_dv).abs().max().item() <= 1e-4
     assert (TF.flash_fwd.launches_f32, TF.flash_bwd_dkv.launches_f32) == (
         before[0] + 1, before[1] + (off == 0))
+
+
+@pytest.mark.parametrize("Sq,Sk,D,causal,off", F32_FLASH_CASES)
+def test_fp32_dq_matches_plain(gen, Sq, Sk, D, causal, off):
+    """The fp32 dq kernel (split TF32) against its plain version (true
+    fp32) within 1e-4 absolute, one fp32 launch, on the cases of the forward
+    and dk/dv (dq has no q offset: the forward's lse is taken at 0)."""
+    q, k, v = _flash_inputs(gen, Sq, Sk, 2, D, torch.float32)
+    scale = D ** -0.5
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = TF.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (dout * out).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, dout, lse, delta, causal, scale)
+    before = TF.flash_bwd_dq.launches_f32
+    got = TF.flash_bwd_dq(*args)
+    assert TF.flash_bwd_dq.launches_f32 == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    assert (got - TF.flash_bwd_dq_plain(*args)).abs().max().item() <= 1e-4
+
+
+def test_fp32_dq_repeats_bit_for_bit(gen):
+    """No atomics and one block per q tile in the fp32 dq kernel: two calls
+    at B=2 S=1024 H=4 D=128 give the same bits."""
+    q, k, v = _flash_inputs(gen, 1024, 1024, 4, 128, torch.float32)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = TF.flash_fwd(q, k, v, True, 128 ** -0.5)
+    delta = (dout * out).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, dout, lse, delta, True, 128 ** -0.5)
+    first, second = TF.flash_bwd_dq(*args), TF.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fp32_dkv_repeats_bit_for_bit(gen):

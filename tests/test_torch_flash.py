@@ -208,20 +208,20 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     "dtype,D,fwd,bwd",
     [(torch.bfloat16, 128, (64, 64), ((64, 64), (64, 32))),
      (torch.bfloat16, 160, (64, 32), ((64, 32), (64, 32))),
-     (torch.float32, 128, (64, 32), ((32, 32), (64, 16))),
-     (torch.float32, 256, (64, 32), ((16, 16), (64, 16))),
+     (torch.float32, 128, (64, 32), ((64, 16), (64, 16))),
+     (torch.float32, 256, (64, 32), ((64, 16), (64, 16))),
      (torch.bfloat16, 64, (64, 64), ((64, 64), (64, 64))),
-     (torch.float32, 36, (64, 32), ((32, 32), (64, 16))),
-     (torch.float32, 144, (64, 32), ((16, 16), (64, 16)))],
+     (torch.float32, 36, (64, 32), ((64, 16), (64, 16))),
+     (torch.float32, 144, (64, 32), ((64, 16), (64, 16)))],
     ids=["dtype0-128-fwd0-64", "dtype1-160-fwd1-32", "dtype2-128-fwd2-32",
          "dtype3-256-fwd3-16", "bf16-64", "fp32-36", "fp32-144"])
 def test_plain_versions_walk_the_kernels_tiles(dtype, D, fwd, bwd):
     """The forward's (q tile, kv tile) and the backward's ((dq q rows, kv
     tile), (dk/dv kv rows, q tile)): bf16 blocks own 64 rows; the forward
     and dq halve their kv tile above D = 128, dk/dv streams 32-row q tiles
-    above D = 64. fp32: the forward's 64 q rows over 32-row kv tiles at
-    every D; dk/dv's 64 kv rows over 16-row q tiles; dq keeps its square
-    tile (32, 16 above D = 128)."""
+    above D = 64. fp32, at every D: the forward's 64 q rows over 32-row kv
+    tiles, dq's 64 q rows over 16-row kv tiles, dk/dv's 64 kv rows over
+    16-row q tiles."""
     assert TF.fwd_tiles(dtype, D) == fwd
     assert TF.bwd_tiles(dtype, D) == bwd
 
@@ -373,7 +373,7 @@ def _split_tf32(x: torch.Tensor):
 
 
 def test_split_tf32_mirror_holds_its_error_bounds():
-    """The fp32 forward and dk/dv kernels take every fp32 product as
+    """The fp32 flash kernels take every fp32 product as
     a_lo b_hi + a_hi b_lo + a_hi b_hi (csrc/mma_sm90.cuh). Here a mirror of
     the split in integer ops: ties round away from zero; hi and lo are tf32
     values (low 13 bits zero); hi + lo holds x within 2**-22 of |x|. On
@@ -381,7 +381,8 @@ def test_split_tf32_mirror_holds_its_error_bounds():
     is within 3 * 2**-22 of sum |q_i k_i| of the exact product of the same
     fp32 inputs, and the scores (times D**-0.5) within 2e-6 of theirs: the
     margin under FLASH_FWD_TOL (2e-5 on outputs, chip_smoke.py), which the
-    split leaves unchanged."""
+    split leaves unchanged. Then int8_mm_f32's two-product form against an
+    int8 weight, which needs no split."""
     tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -11 - 2.0 ** -23],
                        dtype=torch.float32)
     assert _tf32_rna(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
@@ -402,6 +403,21 @@ def test_split_tf32_mirror_holds_its_error_bounds():
     err = (three - exact).abs()
     assert (err <= 3 * 2.0 ** -22 * (d(q).abs() @ d(k).abs().T)).all()
     assert err.max().item() * 128 ** -0.5 <= 2e-6
+
+    # the exact-B form of int8_mm_f32 (sm90::mma_2xtf32_exact_b): every
+    # int8 value is its own tf32 rounding, so its lo part is zero, and
+    # x_hi w + x_lo w is within 2**-22 of |x w| a product; over K = 4096 the
+    # two-product sum is within 2**-22 of sum |x_i w_i| of the exact one
+    w8 = torch.arange(-128, 128, dtype=torch.float32)
+    hi, lo = _split_tf32(w8)
+    assert torch.equal(hi, w8) and not lo.any()
+    x = torch.from_numpy(r.randn(64, 4096).astype(np.float32))
+    w = torch.from_numpy(r.randint(-127, 128, (4096, 32)).astype(np.float32))
+    xh, xl = _split_tf32(x)
+    two = d(xl) @ d(w) + d(xh) @ d(w)
+    exact = d(x) @ d(w)
+    assert ((d(xh) + d(xl) - d(x)).abs() <= 2.0 ** -22 * d(x).abs()).all()
+    assert ((two - exact).abs() <= 2.0 ** -22 * (d(x).abs() @ d(w).abs())).all()
 
 
 # ------------------------------------------------ the slice: LLaMA training

@@ -22,9 +22,9 @@ PREFILL = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 40320)]
 @pytest.mark.parametrize("K,N", PREFILL)
 def test_plan_fills_the_card_at_the_prefill_shapes(M, K, N):
     """At least one full wave of blocks (one per SM of the H100) at each
-    prefill shape of the 256 and 512 buckets, the bf16 kernel's tile."""
-    tile_m, tile_n, split = TI.int8_plan(M, N, K)
-    assert (tile_m, tile_n) == TI.BF16_TILE
+    prefill shape of the 256 and 512 buckets, the kernels' tile."""
+    tile_m, tile_n, split = TI.int8_plan(M, N, K, torch.bfloat16)
+    assert (tile_m, tile_n) == TI.TILES[torch.bfloat16]
     blocks = -(-M // tile_m) * (N // tile_n) * split
     assert blocks >= TI.SMS
     assert 1 <= split <= min(TI.MAX_SPLIT, K // TI.K_CHUNK)
@@ -36,7 +36,7 @@ def test_every_split_covers_k_in_whole_chunks(M, K, N):
     """The plan's split, and every split the kernel takes at this K, cut K
     into adjacent runs of whole 128-wide chunks, none empty; the workspace
     holds one fp32 [M, N] partial per split, none when unsplit."""
-    _, _, planned = TI.int8_plan(M, N, K)
+    _, _, planned = TI.int8_plan(M, N, K, torch.bfloat16)
     for split in sorted({planned, *range(1, min(TI.MAX_SPLIT, K // 128) + 1)}):
         bounds = TI.int8_split_bounds(K, split)
         assert len(bounds) == split
@@ -49,13 +49,28 @@ def test_every_split_covers_k_in_whole_chunks(M, K, N):
         assert TI.int8_workspace(M, N, split) == want
 
 
+@pytest.mark.parametrize("M", [256, 300, 512, 2048])
+@pytest.mark.parametrize("K,N", PREFILL)
+def test_fp32_plan_fills_the_card_and_covers_k(M, K, N):
+    """fp32 x (int8_mm_f32) plans on its own 64 x 128 tile: at least one
+    full wave of blocks at the prefill shapes, a split the kernel takes, and
+    runs of whole 128-wide chunks that cover K once."""
+    tile_m, tile_n, split = TI.int8_plan(M, N, K, torch.float32)
+    assert (tile_m, tile_n) == TI.TILES[torch.float32] == (64, 128)
+    assert -(-M // tile_m) * (N // tile_n) * split >= TI.SMS
+    assert 1 <= split <= min(TI.MAX_SPLIT, K // TI.K_CHUNK)
+    covered = [c for b, e in TI.int8_split_bounds(K, split)
+               for c in range(b // 128, e // 128)]
+    assert covered == list(range(K // 128))
+
+
 def test_plan_splits_only_below_one_wave():
     """Enough output tiles on their own (two blocks per SM) take no split;
     the 4096 x 4096 and K = 11008 shapes at M = 256 do split, K = 11008 into
     runs of unequal chunk counts (86 chunks)."""
-    assert TI.int8_plan(256, 40320, 4096)[2] == 1
-    assert TI.int8_plan(1024, 4096, 4096)[2] == 1
-    split = TI.int8_plan(256, 4096, 11008)[2]
+    assert TI.int8_plan(256, 40320, 4096, torch.bfloat16)[2] == 1
+    assert TI.int8_plan(1024, 4096, 4096, torch.bfloat16)[2] == 1
+    split = TI.int8_plan(256, 4096, 11008, torch.bfloat16)[2]
     assert split > 1
     sizes = {(e - b) // 128 for b, e in TI.int8_split_bounds(11008, split)}
     assert sizes == ({86 // split} if 86 % split == 0
