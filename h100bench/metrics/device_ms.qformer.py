@@ -1,0 +1,10 @@
+"""device_ms.qformer (ms/image), layer "encode": device time of the ``qformer``
+span, children included (``models/qformer.qformer_apply``), over the images
+of the slice's ``tokenizer.encode`` spans. Read from the program's own spans
+and their CUDA events (``_encode_split``); the eight ``device_ms`` metrics
+are a partition of the program's device time."""
+from h100bench.metrics._encode_split import device_ms
+
+
+def read(run):
+    return device_ms(run, "qformer")

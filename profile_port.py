@@ -55,9 +55,11 @@ def region(label: str, fn, card: str, reps: int = 5, top_n: int = 8) -> None:
         fn()
         torch.cuda.synchronize()
     # device-side events only (kernels, copies, memsets); the CPU-side aten
-    # ops that launched them carry the same time again
+    # ops that launched them carry the same time again, and so do the
+    # device-side ranges of the program's spans (user annotations)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and not e.is_user_annotation]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     wall_ms = statistics.median(walls)
     if busy_ms <= 0:

@@ -19,6 +19,7 @@ from ..ops.int8_matmul import (can_use_kernel, int8_matmul, int_dot,
                                w8a8_epilogue, w8a8_kernel_takes, w8a8_matmul)
 from ..ops.quantization import quantize_acts
 from ..parallel.local import embedding, gathered, product_operands
+from ..utils.metrics_logging import span
 from ..utils.tree import leaves, tree_map
 
 Params = Dict[str, Any]
@@ -29,30 +30,32 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    if "kernel_q" in p:
-        # int8 weight-only path: per-output-channel scale in the epilogue.
-        # 2-D weights with a prefill-sized M take the int8 kernel, which
-        # never writes a bf16 copy of the weights; the rest dequantize here.
-        wq = p["kernel_q"]
-        if wq.dim() == 2:
-            K, N = wq.shape
-            lead = x.shape[:-1]
-            M = 1
-            for d in lead:
-                M *= d
-            if can_use_kernel(M, K, N):
-                y = int8_matmul(x.reshape(M, K), wq, p["scale"])
-                y = y.reshape(*lead, N)
+    with span("linear", x):
+        if "kernel_q" in p:
+            # int8 weight-only path: per-output-channel scale in the
+            # epilogue. 2-D weights with a prefill-sized M take the int8
+            # kernel, which never writes a bf16 copy of the weights; the
+            # rest dequantize here.
+            wq = p["kernel_q"]
+            if wq.dim() == 2:
+                K, N = wq.shape
+                lead = x.shape[:-1]
+                M = 1
+                for d in lead:
+                    M *= d
+                if can_use_kernel(M, K, N):
+                    y = int8_matmul(x.reshape(M, K), wq, p["scale"])
+                    y = y.reshape(*lead, N)
+                else:
+                    y = (x @ wq.to(x.dtype)) * p["scale"].to(x.dtype)
             else:
                 y = (x @ wq.to(x.dtype)) * p["scale"].to(x.dtype)
         else:
-            y = (x @ wq.to(x.dtype)) * p["scale"].to(x.dtype)
-    else:
-        x, w = product_operands(x, p["kernel"])
-        y = x @ w.to(x.dtype)
-    if "bias" in p:
-        y = y + gathered(p["bias"]).to(y.dtype)
-    return y
+            x, w = product_operands(x, p["kernel"])
+            y = x @ w.to(x.dtype)
+        if "bias" in p:
+            y = y + gathered(p["bias"]).to(y.dtype)
+        return y
 
 
 def linear_w8a8(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -69,28 +72,30 @@ def linear_w8a8(p: Params, x: torch.Tensor) -> torch.Tensor:
     ``can_use_w8a8_kernel`` shapes (M >= 256) and the decode rows below them,
     for which the card has no integer matmul. Shapes that do not tile (which
     no kernel of seed_tpu takes either) go to the library product."""
-    xq, xs = quantize_acts(x)
-    wq = p["kernel_q"]
-    K, N = wq.shape
-    lead = x.shape[:-1]
-    if x.device.type == "cuda" and not w8a8_kernel_takes(K, N):
-        y = w8a8_epilogue(int_dot(xq, wq), xs, p["scale"], x.dtype)
-    else:
-        y = w8a8_matmul(xq.reshape(-1, K), xs.reshape(-1, 1), wq,
-                        p["scale"].float(), x.dtype).reshape(*lead, N)
-    if "bias" in p:
-        y = y + p["bias"].to(y.dtype)
-    return y
+    with span("linear", x):
+        xq, xs = quantize_acts(x)
+        wq = p["kernel_q"]
+        K, N = wq.shape
+        lead = x.shape[:-1]
+        if x.device.type == "cuda" and not w8a8_kernel_takes(K, N):
+            y = w8a8_epilogue(int_dot(xq, wq), xs, p["scale"], x.dtype)
+        else:
+            y = w8a8_matmul(xq.reshape(-1, K), xs.reshape(-1, 1), wq,
+                            p["scale"].float(), x.dtype).reshape(*lead, N)
+        if "bias" in p:
+            y = y + p["bias"].to(y.dtype)
+        return y
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    orig = x.dtype
-    x = x.float()
-    mean = x.mean(dim=-1, keepdim=True)
-    var = (x - mean).square().mean(dim=-1, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
-    return y.to(orig)
+    with span("layer_norm", x):
+        orig = x.dtype
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+        return y.to(orig)
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

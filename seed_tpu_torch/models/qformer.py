@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..ops.attention import mha
+from ..utils.metrics_logging import span
 from . import layers as L
 
 
@@ -188,17 +189,19 @@ def qformer_apply(params, image_embeds: torch.Tensor, cfg: QFormerConfig,
     encoder_hidden_states=...), qformer_causual.py:768-915, is_casual=True).
     With ``text_ids`` [B, T] (and ``text_pad``, 1 = real token) the text
     follows the queries under ``seed_causal_mask``: ITM's joint pass."""
-    B = image_embeds.shape[0]
-    Q = cfg.query_len
-    x = params["query_tokens"].to(image_embeds.dtype).expand(B, Q, cfg.hidden)
-    T = 0
-    if text_ids is not None:
-        T = text_ids.shape[1]
-        x = torch.cat([x, _text_embed(params["embeddings"], text_ids)
-                       .to(x.dtype)], 1)
-    x = L.layer_norm(params["embeddings"]["norm"], x, cfg.ln_eps)
-    mask = seed_causal_mask(Q, T, text_pad, image_embeds.device)
-    return _layers_apply(params, x, image_embeds, cfg, mask, T)
+    with span("qformer", image_embeds):
+        B = image_embeds.shape[0]
+        Q = cfg.query_len
+        x = params["query_tokens"].to(image_embeds.dtype).expand(
+            B, Q, cfg.hidden)
+        T = 0
+        if text_ids is not None:
+            T = text_ids.shape[1]
+            x = torch.cat([x, _text_embed(params["embeddings"], text_ids)
+                           .to(x.dtype)], 1)
+        x = L.layer_norm(params["embeddings"]["norm"], x, cfg.ln_eps)
+        mask = seed_causal_mask(Q, T, text_pad, image_embeds.device)
+        return _layers_apply(params, x, image_embeds, cfg, mask, T)
 
 
 def qformer_caption_apply(params, image_embeds: torch.Tensor,

@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from ..ops.quantization import VIT_TARGETS, quantize_tree
+from ..utils.metrics_logging import span
 from . import layers as L
 from . import quantizer as VQ
 from .qformer import QFormerConfig, SEED_QFORMER, init_qformer, qformer_apply
@@ -149,8 +150,9 @@ def encode_features(params, images: torch.Tensor,
 def encode(params, images: torch.Tensor,
            cfg: SeedTokenizerConfig = SEED_TOKENIZER) -> torch.Tensor:
     """images [B, H, W, 3] (preprocessed) -> token ids int32 [B, Q]."""
-    z = encode_features(params, images, cfg)
-    return VQ.nearest_codes(params["vq"]["codebook"], z)
+    with span("tokenizer.encode", images, images=images.shape[0]):
+        z = encode_features(params, images, cfg)
+        return VQ.nearest_codes(params["vq"]["codebook"], z)
 
 
 # ------------------------------ decode -------------------------------------

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import mha
 from ..ops.flash_attention import flash_attention
+from ..utils.metrics_logging import span
 from . import layers as L
 
 
@@ -142,15 +143,18 @@ def block_apply(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
         qkv = qkv + bias.to(qkv.dtype)
     # strided views of the fused projection; the kernel reads them in place
     q, k, v = (t.reshape(B, N, H, hd) for t in qkv.split(D, dim=-1))
-    if cfg.use_flash:
-        o = flash_attention(q, k, v, exact=cfg.flash_exact)
-    else:
-        o = mha(q, k, v)
+    with span("attention", x):
+        if cfg.use_flash:
+            o = flash_attention(q, k, v, exact=cfg.flash_exact)
+        else:
+            o = mha(q, k, v)
     x = x + _lin(p["attn"]["proj"], o.reshape(B, N, D), cfg)
 
     h = L.layer_norm(p["norm2"], x, cfg.ln_eps)
-    h = _lin(p["mlp"]["fc2"], act(_lin(p["mlp"]["fc1"], h, cfg)), cfg)
-    return x + h
+    h = _lin(p["mlp"]["fc1"], h, cfg)
+    with span("act", h):
+        h = act(h)
+    return x + _lin(p["mlp"]["fc2"], h, cfg)
 
 
 def blocks_apply(blocks: List[dict], x: torch.Tensor,
@@ -164,15 +168,16 @@ def vit_apply(params, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """images [B, H, W, C] (already resized + normalized) -> [B, N+1, dim].
     Patch embed, prepend cls, add pos embed, (CLIP: ln_pre,) blocks. No
     final norm: the caller applies ln_vision."""
-    patches = patchify(images, cfg.patch_size)
-    x = L.linear(params["patch_embed"], patches)
-    B = x.shape[0]
-    cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.dim)
-    x = torch.cat([cls, x], dim=1)
-    x = x + params["pos_embed"].to(x.dtype)
-    if cfg.ln_pre:
-        x = L.layer_norm(params["ln_pre"], x, cfg.ln_eps)
-    return blocks_apply(params["blocks"], x, cfg)
+    with span("vit", images):
+        patches = patchify(images, cfg.patch_size)
+        x = L.linear(params["patch_embed"], patches)
+        B = x.shape[0]
+        cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.dim)
+        x = torch.cat([cls, x], dim=1)
+        x = x + params["pos_embed"].to(x.dtype)
+        if cfg.ln_pre:
+            x = L.layer_norm(params["ln_pre"], x, cfg.ln_eps)
+        return blocks_apply(params["blocks"], x, cfg)
 
 
 def init_clip_vision_projection(gen, cfg: ViTConfig, proj_dim: int = 1024,

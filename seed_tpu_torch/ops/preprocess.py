@@ -14,6 +14,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics_logging import span
+
 # CLIP normalization constants (models/seed_llama_tokenizer.py:55)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -124,16 +126,17 @@ def preprocess(images_u8: torch.Tensor, image_size: int = 224,
 
     When a resize is needed, ``pil_exact=True`` reproduces PIL's uint8 resize
     bit for bit; ``pil_exact=False`` takes the continuous float bicubic."""
-    if tuple(images_u8.shape[1:3]) != (image_size, image_size):
-        if pil_exact:
-            images_u8 = resize_bicubic_pil(images_u8, (image_size, image_size))
-            x = images_u8.float() / 255.0
+    with span("preprocess", images_u8, images=images_u8.shape[0]):
+        size = (image_size, image_size)
+        if tuple(images_u8.shape[1:3]) != size:
+            if pil_exact:
+                images_u8 = resize_bicubic_pil(images_u8, size)
+                x = images_u8.float() / 255.0
+            else:
+                x = resize_bicubic(images_u8.float() / 255.0, size)
         else:
-            x = resize_bicubic(images_u8.float() / 255.0,
-                               (image_size, image_size))
-    else:
-        x = images_u8.float() / 255.0
-    return normalize(x, dtype)
+            x = images_u8.float() / 255.0
+        return normalize(x, dtype)
 
 
 def _scale_translate_weights(in_size: int, out_size: int, scale: torch.Tensor,

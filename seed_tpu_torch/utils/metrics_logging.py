@@ -4,16 +4,21 @@
 The LAVIS logging layer (lavis/common/logger.py MetricLogger and
 SmoothedValue with their cross-process sync; runner_base.py:681-692's
 log.txt JSON lines), plus what the reference lacks: a ``torch.profiler``
-trace around training steps and device-synchronized step timing.
+trace around training steps, device-synchronized step timing, and spans at
+the program's layer boundaries (``span``), recorded while a profiler runs.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from typing import Dict, Iterable, Optional
+import warnings
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -176,3 +181,121 @@ class StepTimer:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         return time.perf_counter() - self.t0
+
+
+# ------------------------------- spans --------------------------------------
+# A span marks one layer of the program (``with span("vit", x): ...``). It
+# records only while a ``torch.profiler`` records in the process (the
+# benchmark's traced slice, ``profile_trace``); otherwise ``span`` hands back
+# one shared no-op context. The records are per process, as the profiler is.
+
+SPAN_PREFIX = "seed_tpu_torch:"     # of each span's record_function range
+MAX_SPANS = 1 << 16                 # records kept until clear_spans()
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_ids = itertools.count(1)
+_open = threading.local()           # .stack: the thread's open spans
+_records: list = []                 # finished _Span objects
+
+
+@dataclass(frozen=True)
+class SpanRecord:
+    """One finished span. Host times are ``time.time_ns()``, the clock the
+    profiler stamps its events with, so a span lines up with the kernels it
+    launched. Device times are milliseconds between two CUDA events recorded
+    on the current stream at entry and exit (None when the span's tensor is
+    not on CUDA). Self time is the duration less that of the span's
+    children."""
+    name: str
+    span_id: int
+    parent_id: Optional[int]
+    root_id: int                # the outermost span's id: one per call
+    counts: Dict[str, int]
+    start_ns: int
+    end_ns: int
+    self_ns: int
+    device_ms: Optional[float]
+    device_self_ms: Optional[float]
+
+
+class _Span:
+    __slots__ = ("name", "counts", "events", "device_ms", "span_id",
+                 "parent_id", "root_id", "start_ns", "end_ns", "rf")
+
+    def __init__(self, name: str, x, counts: dict):
+        self.name, self.counts = name, counts
+        self.device_ms = None
+        self.events = None
+        if x is not None and x.device.type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent = stack[-1] if stack else None
+        self.span_id = next(_ids)
+        self.parent_id = parent.span_id if parent else None
+        self.root_id = parent.root_id if parent else self.span_id
+        self.start_ns = time.time_ns()
+        self.rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self.rf.__enter__()
+        if self.events:
+            self.events[0].record()
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self.events:
+            self.events[1].record()
+        self.rf.__exit__(*exc)
+        self.end_ns = time.time_ns()
+        _open.stack.pop()
+        _records.append(self)
+        return False
+
+
+def span(name: str, x: Optional[torch.Tensor] = None, **counts):
+    """Context manager of one span named ``name``, with ``counts`` (ints,
+    e.g. ``images=256``) kept on its record. ``x`` is a tensor the block
+    works on: on CUDA the span also times the device, by events that need
+    no synchronisation. Off (no profiler recording): one flag check and a
+    shared no-op context."""
+    if not _profiling():
+        return _OFF
+    if len(_records) >= MAX_SPANS:
+        return _OFF
+    return _Span(name, x, counts)
+
+
+def recorded_spans() -> List[SpanRecord]:
+    """The finished spans since ``clear_spans()``, in the order they closed,
+    with host and device self times. Waits for the device to pass each
+    span's closing event (a span itself never waits)."""
+    recs = list(_records)
+    if len(recs) >= MAX_SPANS:
+        warnings.warn(f"the first {MAX_SPANS} spans were kept and later ones "
+                      "dropped: call clear_spans() between readings")
+    for r in recs:
+        if r.events is not None:
+            r.events[1].synchronize()
+            r.device_ms = r.events[0].elapsed_time(r.events[1])
+            r.events = None
+    child_ns: Dict[int, int] = collections.defaultdict(int)
+    child_ms: Dict[int, float] = collections.defaultdict(float)
+    for r in recs:
+        if r.parent_id is not None:
+            child_ns[r.parent_id] += r.end_ns - r.start_ns
+            if r.device_ms is not None:
+                child_ms[r.parent_id] += r.device_ms
+    return [SpanRecord(
+        r.name, r.span_id, r.parent_id, r.root_id, r.counts, r.start_ns,
+        r.end_ns, r.end_ns - r.start_ns - child_ns[r.span_id], r.device_ms,
+        None if r.device_ms is None else r.device_ms - child_ms[r.span_id])
+        for r in recs]
+
+
+def clear_spans() -> None:
+    """Drop every finished span."""
+    _records.clear()
