@@ -12,8 +12,9 @@ Phases, each printing lines of its own:
              flash forward, dq and dk/dv, and w8a8_matmul) against its plain
              PyTorch version on the card at the main paths' shapes, and time
              kernel, plain version, the library yardstick and the bound
-             (int8_matmul also against cuBLAS on a pre-converted weight);
-             int8_matmul and w8a8_matmul repeat their bits at every case;
+             (int8_matmul also against cuBLAS on a pre-converted weight;
+             short_mha at B=8 and at the b256 encode's B=256, which is the
+             kernels line's row 1); int8_matmul and w8a8_matmul repeat their bits at every case;
              short_mha's gradient (the mha recompute) against mha. The fp32
              instances off every path, int8_matmul with fp32 x (M=256,
              K=N=4096; two TF32 products against the exact int8 weight) and
@@ -27,7 +28,10 @@ Phases, each printing lines of its own:
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
-             8 uint8 images -> preprocess -> 32 ids each, exact and fast.
+             8 uint8 images -> preprocess -> 32 ids each, the default
+             config (mha's arithmetic through short_mha's exact epilogue),
+             flash exact and fast; 39 short_mha launches an encode; the
+             default config's ids equal flash exact's bit for bit.
 5. serve   — SEED-LLaMA-8B, seeded bf16 weights quantized to int8 layer by
              layer, built by instantiate(load_config(
              "configs/seed_llama_8b_8bit.json")): batched
@@ -63,7 +67,9 @@ Phases, each printing lines of its own:
              EVA-ViT-g through the fp32 short_mha kernel, Q-Former with its
              text pathway, batch 16, 3 steps, saved), then stage 2 from that
              checkpoint with the random CLIP-ViT-H targets computed inline
-             (2 steps); short_mha's fp32 launch at that shape timed, with
+             (2 steps; the bf16 tower's attention also runs short_mha, 32
+             launches a batch the data thread prepares); short_mha's fp32
+             launch at that shape timed, with
              the fast epilogue the path runs and the exact one.
 11. eval   — 11a (after phase 8, on its objects): reconstruction FID and
              IS of the de-tokenizer's pixels (the 8 images encoded, decoded
@@ -103,13 +109,15 @@ Phases, each printing lines of its own:
              merge_lora at the 8B's width cut to 4 layers (MERGE_LAYERS)
              against merge_lora_weights in memory; acceptance --synthetic
              --device cuda (exit 0); check_full_geometry for the 8B and 14B,
-             LoRA and --full, at --tp 2 --devices=8.
+             LoRA and --full, at --tp 2 --devices=8. short_mha launches 39
+             times for each of their 9 bf16 encodes, no other kernel runs.
 
 Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
 phase 9 (train_llm), phase 10 (train_tokenizer), phases 11a-11b (eval) and
 phase 12a (parallel) are the main paths: the launch counters of a path's kernels are set to 0
-just before it and read just after. Phases 8 and 13 launch none of the six
-kernels (their lines show the counts) and are counted on no path; nor are 11c
+just before it and read just after. Phase 8 launches none of the six
+kernels and phase 13 only short_mha (its bf16 encodes; the lines show the
+counts); neither is counted on a path; nor are 11c
 and 11d (11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
@@ -213,7 +221,8 @@ def split_tf32_bounds(nbytes: float, flops: float, products: int) -> dict:
 # its split-K reduction and its fp32-x kernel; row 1 its fp32 instance on
 # the FMA units apart; rows 3-5 their fp32 instances on split-TF32 products
 # apart)
-PTXAS_KERNELS = {"short_mha": ("short_mha_bf16_kernel",),
+PTXAS_KERNELS = {"short_mha": ("short_mha_wg_kernel",),
+                 "short_mha_recompute": ("short_mha_bf16_kernel",),
                  "short_mha_f32": ("short_mha_f32_kernel",),
                  "flash_fwd": ("flash_fwd_bf16_kernel",),
                  "flash_fwd_f32": ("flash_fwd_f32_kernel",),
@@ -318,20 +327,24 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     record = {}
 
-    # short_mha: EVA-ViT-g shape, both io types, all three epilogues
-    # (D=88 -> exact and fast-with-ones; D=128 -> fast-divide), timed; then
-    # D=64 and the longest sequence the dispatcher routes here (Sk = 1024),
-    # checked only.
+    # short_mha: EVA-ViT-g shape at B=8, both io types, all three epilogues
+    # (D=88 -> exact and fast-with-ones; D=128 -> fast-divide), timed; the
+    # b256 encode's call (B=256: one block walks a (b, h)'s five q tiles),
+    # bf16 exact and fast, timed; then D=64 and the longest sequence the
+    # dispatcher routes here (Sk = 1024), checked only.
     # Tolerance: fp32 2e-5 (sum order only); bf16 2**-6 (a bf16 rounding of
     # p or of the output may land one ulp apart when sums differ in order).
     tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
-    cases = [(8, 257, 16, D, exact, True) for D, exact in
+    both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    cases = [(8, 257, 16, D, exact, True, both) for D, exact in
              ((88, True), (88, False), (128, True), (128, False))]
-    cases += [(8, 257, 16, 64, True, False), (2, 1024, 16, 88, True, False),
-              (2, 1024, 16, 88, False, False)]
-    worst = 0.0
-    for B, S, H, D, exact, timed in cases:
-        for dtype in (torch.bfloat16, torch.float32):
+    cases += [(256, 257, 16, 88, exact, True, bf16) for exact in (True, False)]
+    cases += [(8, 257, 16, 64, True, False, both),
+              (2, 1024, 16, 88, True, False, both),
+              (2, 1024, 16, 88, False, False, both)]
+    worst, row1 = 0.0, {}
+    for B, S, H, D, exact, timed, dtypes in cases:
+        for dtype in dtypes:
             q, k, v = _qkv_views(gen, B, S, H, D, dtype)
             scale = D ** -0.5
             got = short_mha(q, k, v, scale, exact)
@@ -349,26 +362,30 @@ def phase_kernels(name: str, flush: torch.Tensor) -> dict:
                 emit("kernels", kernel="short_mha", **label, max_abs_err=err,
                      frac_equal=same, tol=tol[dtype], card=name)
                 continue
+            del got, want
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             ms = time_ms(lambda: short_mha(q, k, v, scale, exact), flush=flush)
             plain = time_ms(lambda: short_mha_plain(q, k, v, scale, exact),
                             flush=flush)
             lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                           flush=flush)
+            del qt, kt, vt
             nbytes = 4 * B * S * H * D * dtype.itemsize
             flops = 4 * B * H * S * S * D
             bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
             timing = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
                           bound_by=by)
             if dtype == torch.bfloat16 and D == 88 and exact:
-                # the exact encode's call; also timed as PRs 1-3 timed it
+                # an exact encode's call; also timed as PRs 1-3 timed it
                 timing["ms_host_included"] = time_ms(
                     lambda: short_mha(q, k, v, scale, exact), flush=flush,
                     hide_host=False)
-                record["short_mha"] = dict(timing)
+                row1[B] = dict(timing)
             emit("kernels", kernel="short_mha", **label, max_abs_err=err,
                  frac_equal=same, tol=tol[dtype], card=name, **timing)
-    record["short_mha"]["max_abs_err"] = worst
+    # the kernels line's row 1: the b256 encode's call, the main path's
+    # shape, with the B=8 call beside it
+    record["short_mha"] = dict(row1[256], b8=row1[8], max_abs_err=worst)
 
     # short_mha's gradient on the card: one call through flash_attention's
     # short route with requires_grad (the kernel forward, the mha recompute
@@ -975,7 +992,8 @@ def phase_encode(name: str, params, raw: torch.Tensor) -> torch.Tensor:
         images = preprocess(raw, 224, torch.bfloat16)
         if images.shape != (8, 224, 224, 3) or not images.isfinite().all():
             raise AssertionError(f"preprocess: bad output {images.shape}")
-        for label, cfg in (("exact", _flash_cfg(ST.SEED_TOKENIZER, True)),
+        for label, cfg in (("default", ST.SEED_TOKENIZER),
+                           ("exact", _flash_cfg(ST.SEED_TOKENIZER, True)),
                            ("fast", ST.serving_fast_config(ST.SEED_TOKENIZER))):
             before = short_mha.launches
             out = ST.encode(params, images, cfg)
@@ -1000,8 +1018,14 @@ def phase_encode(name: str, params, raw: torch.Tensor) -> torch.Tensor:
             emit("encode", config=label, batch=8, img_per_s=8 / seconds,
                  ms_per_encode=seconds * 1e3,
                  short_mha_launches_per_encode=depth, card=name)
+    # the default config and flash exact run the same mode-0 kernel on the
+    # same inputs, so their ids are the same bits
+    if not torch.equal(ids["default"], ids["exact"]):
+        raise AssertionError("encode: the default config's ids differ from "
+                             "flash exact's")
     agree = (ids["exact"] == ids["fast"]).float().mean().item()
-    emit("encode", fast_vs_exact_id_agreement=agree, card=name)
+    emit("encode", default_equals_exact=True,
+         fast_vs_exact_id_agreement=agree, card=name)
     return ids["exact"]
 
 
@@ -2123,14 +2147,28 @@ def _tokenizer_stage(name: str, stage: int, argv: list, metric_keys):
         n_params["trainable_params" if trains(p) else "frozen_params"] += \
             t.numel()
     depth = setup.tok_cfg.vit.depth
+    # stage 2's frozen bf16 CLIP tower (--arch full: CLIP-ViT-H) runs its
+    # attention through short_mha too, one launch a block for each batch the
+    # data thread prepares (it reads ahead)
+    per_clip, clip_calls = 0, [0]
+    if setup.clip is not None:
+        from seed_tpu_torch.models.vit import CLIP_VIT_H
+        per_clip, clip = CLIP_VIT_H.depth, setup.clip
+
+        def counted(images):
+            clip_calls[0] += 1
+            return clip(images)
+        setup.clip = counted
     launches0 = short_mha.launches
     torch.cuda.reset_peak_memory_stats()
     rec = TT.run(args, setup)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     got = short_mha.launches - launches0
-    if got != depth * args.steps:
+    if got != depth * args.steps + per_clip * clip_calls[0]:
         raise AssertionError(f"train_tokenizer stage {stage}: short_mha "
-                             f"launched {got} times, not {depth} per step")
+                             f"launched {got} times, not {depth} per step "
+                             f"and {per_clip} per CLIP batch "
+                             f"({clip_calls[0]} batches)")
     logged = [r for r in rec["log"] if "loss" in r]
     for r in logged:
         if not all(math.isfinite(r[k]) for k in ("loss", *metric_keys)):
@@ -2165,6 +2203,7 @@ def _tokenizer_stage(name: str, stage: int, argv: list, metric_keys):
          img_per_s=args.batch_size / median,
          metrics={k: [r[k] for r in logged] for k in ("loss", *metric_keys)},
          short_mha_launches=got, short_mha_launches_per_step=depth,
+         clip_short_mha_launches_per_batch=per_clip,
          frozen_leaves=len(frozen), checkpoint_leaves=len(want), **n_params,
          max_memory_allocated_gib=peak, **_host_share(rec, seconds), **side,
          card=name)
@@ -2918,10 +2957,11 @@ def _blocks(ids) -> list:
     return out
 
 
-def scripts_llama(name: str, jpeg: Path) -> None:
+def scripts_llama(name: str, jpeg: Path) -> int:
     """seed_llama_inference --model 8b: SEED-LLaMA-8B bf16 at full width and
     depth, the full SEED tokenizer, the three prompts sampled; then the same
-    with one new token, whose seconds are each prompt's prefill."""
+    with one new token, whose seconds are each prompt's prefill. Returns
+    the bf16 encodes run (one a command)."""
     from seed_tpu_torch import BOI_TOKEN_ID
     from seed_tpu_torch.scripts import seed_llama_inference as SLI
     argv = ["--model", "8b", "--image", str(jpeg)]
@@ -2961,12 +3001,14 @@ def scripts_llama(name: str, jpeg: Path) -> None:
     emit("scripts", what="seed_llama_inference --model 8b: the whole command "
          "(seeded init of the 8B and the SEED tokenizer, encode, 3 prompts)",
          seconds=total_s, peak_gib=peak, card=name)
+    return 2
 
 
-def scripts_tokenizer(name: str, jpeg: Path, tmp: Path) -> None:
+def scripts_tokenizer(name: str, jpeg: Path, tmp: Path) -> int:
     """seed_tokenizer_inference with an SD2.1 unCLIP checkpoint written
     here (seeded, bf16): ids, the 768x768 JPEG, and the ids against the
-    interface's encode of the same bytes in process."""
+    interface's encode of the same bytes in process. Returns the bf16
+    encodes run."""
     from PIL import Image
     from seed_tpu_torch.models import seed_tokenizer as ST
     from seed_tpu_torch.models.unclip import SD21_UNCLIP, init_unclip
@@ -3007,10 +3049,11 @@ def scripts_tokenizer(name: str, jpeg: Path, tmp: Path) -> None:
                              f"SeedLlamaInterface.encode_image {want}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(5):
+    reps = 5
+    for _ in range(reps):
         STI.tokenize(params, raw, ST.SEED_TOKENIZER)
     torch.cuda.synchronize()
-    encode_ms = (time.perf_counter() - t0) / 5 * 1e3
+    encode_ms = (time.perf_counter() - t0) / reps * 1e3
     emit("scripts", what="python3 -m seed_tpu_torch.scripts."
          "seed_tokenizer_inference --diffusion-ckpt (SD2.1 unCLIP, seeded "
          "bf16, 20 DDIM steps, guidance 10)", ids=res["ids"][0].tolist(),
@@ -3019,6 +3062,7 @@ def scripts_tokenizer(name: str, jpeg: Path, tmp: Path) -> None:
          seconds_to_jpeg=seconds, unclip_checkpoint_write_seconds=write_s,
          jpeg=list(back.shape), peak_gib=peak, card=name)
     del params, iface
+    return 2 + reps     # the command, the interface, the timed tokenizes
 
 
 def scripts_merge(name: str, tmp: Path) -> None:
@@ -3120,15 +3164,16 @@ def gc_collect() -> None:
 
 def phase_scripts(name: str, scratch: Path) -> None:
     """The five command lines of seed_tpu_torch.scripts in process through
-    their main(); none of the six kernels is on their path."""
+    their main(); of the six kernels only short_mha is on their path, in
+    their bf16 encodes."""
     before = _launch_counts()
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
         jpeg = tmp / "image.jpg"
         write_jpeg(jpeg, SEED + 12)
-        scripts_llama(name, jpeg)
+        encodes = scripts_llama(name, jpeg)
         gc_collect()
-        scripts_tokenizer(name, jpeg, tmp)
+        encodes += scripts_tokenizer(name, jpeg, tmp)
         gc_collect()
         scripts_merge(name, tmp)
         gc_collect()
@@ -3136,8 +3181,14 @@ def phase_scripts(name: str, scratch: Path) -> None:
     scripts_geometry(name)
     launched = _launched_since(before)
     emit("launches", path="scripts", **launched, card=name)
-    if any(launched.values()):
-        raise AssertionError(f"the scripts launched a kernel: {launched}")
+    # the bf16 encodes run the ViT's attention through short_mha, one launch
+    # a block; acceptance encodes in fp32 on mha
+    from seed_tpu_torch.models.seed_tokenizer import SEED_TOKENIZER
+    want = dict.fromkeys(launched, 0)
+    want["short_mha"] = SEED_TOKENIZER.vit.depth * encodes
+    if launched != want:
+        raise AssertionError(f"the scripts launched {launched}, not {want} "
+                             f"({encodes} bf16 encodes)")
 
 
 def redesigned_smem_bytes() -> dict:
@@ -3320,7 +3371,17 @@ def main() -> None:
         per_dp = usage.get(k, {})
         if k == "int8_matmul":
             entry["gemm_ms"] = record[k]["gemm_ms"]
-        if k == "short_mha":      # the tokenizer training's fp32 instance
+        if k == "short_mha":      # the recompute design, the fp32 instance
+            entry["shape"] = "B=256 S=257 H=16 D=88, bf16, exact"
+            entry["b8"] = record[k]["b8"]
+            rec = usage.get("short_mha_recompute", {})
+            entry["recompute_kernel"] = dict(
+                name="short_mha_bf16_kernel",
+                registers=rec.get("96/0", {}).get("registers"),
+                registers_by_instance={key: u.get("registers")
+                                       for key, u in sorted(rec.items())},
+                spill_bytes=(sum(spill_bytes(u) for u in rec.values())
+                             if rec else None))
             f32 = usage.get("short_mha_f32", {})
             entry["fp32_train_tokenizer"] = fp32_stage1
             entry["fp32_kernel"] = dict(

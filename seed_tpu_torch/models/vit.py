@@ -5,9 +5,13 @@ embedding as a reshape and one matmul. seed_tpu stacks the blocks along a
 leading depth axis for ``lax.scan``; here they are a list of per-block dicts
 applied in a Python loop (``bridge`` unstacks seed_tpu trees).
 
-With ``use_flash`` the block attention goes through ``flash_attention``,
-whose short-sequence route is the hand-written ``short_mha`` kernel;
-``flash_exact`` selects its op-faithful epilogue.
+Block attention by default is ``exact_attention``: ``mha``'s arithmetic,
+which a bf16 call on the card at the kernels' lengths (the 257 tokens of
+every 224 / 14 tower) runs as the hand-written ``short_mha`` kernel's exact
+epilogue; fp32, CPU and short calls (``TINY_VIT``) run ``mha``. With
+``use_flash`` it goes through ``flash_attention``, whose short-sequence
+route is the same kernel; ``flash_exact`` selects its op-faithful epilogue,
+otherwise the fast one.
 """
 from __future__ import annotations
 
@@ -17,8 +21,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import mha
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import exact_attention, flash_attention
 from ..utils.metrics_logging import span
 from . import layers as L
 
@@ -37,8 +40,8 @@ class ViTConfig:
     ln_pre: bool = False        # CLIP's LayerNorm before the blocks
     patch_bias: bool = True
     channels: int = 3
-    use_flash: bool = False     # block attention through flash_attention
-    flash_exact: bool = False   # ... with the kernel's op-faithful epilogue
+    use_flash: bool = False     # block attention through flash_attention's
+    flash_exact: bool = False   # fast epilogue, or with this its exact one
     # W8A8 serving of the frozen encoder: block matmuls whose params were
     # quantized (ops/quantization.quantize_tree with VIT_TARGETS) run
     # int8 x int8 -> int32 through the w8a8 kernel. Norms, attention, patch
@@ -59,7 +62,8 @@ CLIP_VIT_L = ViTConfig(dim=1024, depth=23, heads=16, mlp_dim=4096,
                        qkv_bias="full", act="quick_gelu", ln_eps=1e-5,
                        ln_pre=True, patch_bias=False)
 # CLIP-ViT-H/14: the stage-2 distillation target tower
-# (CLIPVisionModelWithProjection); plain mha attention, as in seed_tpu
+# (CLIPVisionModelWithProjection); mha's arithmetic (exact_attention), as in
+# seed_tpu
 CLIP_VIT_H = ViTConfig(dim=1280, depth=32, heads=16, mlp_dim=5120,
                        qkv_bias="full", act="gelu", ln_eps=1e-5,
                        ln_pre=True, patch_bias=False)
@@ -147,7 +151,7 @@ def block_apply(p, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
         if cfg.use_flash:
             o = flash_attention(q, k, v, exact=cfg.flash_exact)
         else:
-            o = mha(q, k, v)
+            o = exact_attention(q, k, v)
     x = x + _lin(p["attn"]["proj"], o.reshape(B, N, D), cfg)
 
     h = L.layer_norm(p["norm2"], x, cfg.ln_eps)

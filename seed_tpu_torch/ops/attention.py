@@ -2,7 +2,10 @@
 
 ``mha`` is the plain path: fp32 scores and softmax, probabilities rounded to
 the io type before P@V, mask value -1e9. It serves the Q-Former, the LLaMA
-forward and every attention the short-sequence kernel does not take.
+forward, the ViT's attention in fp32, on the CPU and below the kernels'
+lengths, and every other call the short-sequence kernel does not take. A bf16
+ViT block on the card keeps its arithmetic but runs the short kernel's exact
+epilogue (``flash_attention.exact_attention``).
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ seed_tpu/ops/flash_attention.py).
 ``short_mha`` is the hand-written CUDA kernel that replaces seed_tpu's
 ``_short_mha_kernel`` (csrc/short_mha.cu): non-causal whole-sequence
 attention for the ViT's S=257. Its gradient recomputes through ``mha``, the
-rule of seed_tpu's ``_short_mha`` custom_vjp.
+rule of seed_tpu's ``_short_mha`` custom_vjp. ``exact_attention`` is the
+ViT's default attention: ``mha``'s arithmetic, run by the kernel's exact
+epilogue for the bf16 CUDA calls ``short_exact_route`` admits.
 
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` are the hand-written
 CUDA kernels (csrc/flash_attention.cu) that replace seed_tpu's
@@ -54,6 +56,7 @@ _SIGNATURES = {
                        + [ctypes.c_void_p]),
     "seed_short_mha_smem_bytes": [ctypes.c_int] * 3,
     "seed_short_mha_f32_plan": [ctypes.c_int] * 4,
+    "seed_short_mha_bf16_one_pass": [ctypes.c_int] * 3,
 }
 
 # the fp32 kernel's tiles (csrc/short_mha.cu kF32*): rows come in groups of
@@ -242,9 +245,11 @@ def short_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``_short_mha`` does.
 
     CPU tensors take :func:`short_mha_plain`; CUDA tensors launch the
-    kernel of csrc/short_mha.cu (bf16: tensor cores, recomputed scores per
-    pass; fp32: register-tiled products on the FMA units, tiles by
-    :func:`short_mha_f32_plan`) or raise."""
+    kernel of csrc/short_mha.cu (bf16: wgmma with a row's scores in
+    registers, one pass, where Sk <= 264 and 33 <= D <= 96, else mma.sync
+    with the scores recomputed per pass; fp32: register-tiled
+    products on the FMA units, tiles by :func:`short_mha_f32_plan`) or
+    raise."""
     return _ShortMHA.apply(q, k, v, sm_scale, exact)
 
 
@@ -651,6 +656,47 @@ def _short_vmem_bytes(Sq, Sk, H, D, itemsize=2):
     return blocks + scores
 
 
+def _kernel_sized(Sq: int, Sk: int, D: int) -> bool:
+    """seed_tpu's condition for any attention kernel: both lengths from
+    MIN_FLASH_SEQ, D up to 256, K and V within its VMEM estimate."""
+    rnd128 = lambda s: -(-s // 128) * 128
+    kv_vmem = rnd128(Sk) * rnd128(D) * 2 * 2 * 2
+    return (Sq >= MIN_FLASH_SEQ and Sk >= MIN_FLASH_SEQ and D <= 256
+            and Sk <= MAX_KERNEL_KV and kv_vmem <= 12 * 1024 * 1024)
+
+
+def _short_sized(Sq: int, Sk: int, H: int, D: int) -> bool:
+    """seed_tpu's condition for the short kernel, given a kernel-sized
+    non-causal call: both lengths up to 1024, one program within VMEM."""
+    return (Sq <= 1024 and Sk <= 1024
+            and _short_vmem_bytes(Sq, Sk, H, D) < 12 * 1024 * 1024)
+
+
+def short_exact_route(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether :func:`exact_attention` sends a non-causal, unmasked call to
+    the short kernel, decided from q and k alone: a bf16 CUDA tensor (not a
+    DTensor) with k's head count, at lengths ``flash_attention`` routes to
+    ``short_mha``."""
+    from ..parallel.local import is_sharded
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and k.shape[2] == H and not is_sharded(q)
+            and _kernel_sized(Sq, Sk, D) and _short_sized(Sq, Sk, H, D))
+
+
+def exact_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Non-causal, unmasked attention with ``mha``'s arithmetic on [B, S, H,
+    D] tensors: fp32 scores times D ** -0.5, the softmax against each row's
+    max in fp32, p rounded to the io type, P@V in fp32 rounded once. Where
+    :func:`short_exact_route` says so it runs ``short_mha``'s exact epilogue,
+    which has these rounding points; every other call runs ``mha``."""
+    if short_exact_route(q, k):
+        return short_mha(q, k, v, q.shape[-1] ** -0.5, exact=True)
+    return mha(q, k, v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     q_offset: int = 0, exact: bool = False) -> torch.Tensor:
@@ -671,18 +717,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
 
-    rnd128 = lambda s: -(-s // 128) * 128
-    kv_vmem = rnd128(Sk) * rnd128(D) * 2 * 2 * 2
-    use_kernel = (Sq >= MIN_FLASH_SEQ and Sk >= MIN_FLASH_SEQ
-                  and D <= 256 and Sk <= MAX_KERNEL_KV
-                  and kv_vmem <= 12 * 1024 * 1024)
-    if not use_kernel:
+    if not _kernel_sized(Sq, Sk, D):
         mask = (sliced_causal_mask(Sq, Sk, q_offset, q.device)
                 if causal else None)
         return mha(q, k, v, mask=mask, scale=scale)
 
-    if (not causal and Sq <= 1024 and Sk <= 1024
-            and _short_vmem_bytes(Sq, Sk, H, D) < 12 * 1024 * 1024):
+    if not causal and _short_sized(Sq, Sk, H, D):
         return short_mha(q, k, v, scale, exact)
 
     if exact:

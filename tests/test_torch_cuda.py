@@ -59,6 +59,81 @@ def test_short_mha_kernel_matches_plain(gen, dtype, exact, D, S):
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+# bf16 (B, H, S, D, layout): the one-pass design (a row's scores in
+# registers: Sk <= 264, D from 33 to 96) at the EVA-ViT's D = 88 and the CLIP
+# towers' 64 and 80, with B H below 2 x 132 (the q tiles of a (b, h) split
+# over blocks) and far above (a block walks all five: B=256, H=16 is the
+# encode's call); Sk = 256 and 264, the edges of its last 8 keys; layout
+# "fused": q/k/v views of one [B, S, 3 H D] projection (16-byte cp.async
+# staging), "offset": one element past an aligned base (element-wise
+# staging); Sk = 300 and 1024 take the recompute design
+BF16_DESIGN_CASES = [(2, 16, 257, 88, "fused"), (256, 16, 257, 88, "fused"),
+                     (1, 16, 257, 64, "fused"), (40, 16, 257, 80, "fused"),
+                     (8, 16, 257, 88, "offset"), (24, 16, 256, 64, "offset"),
+                     (3, 5, 264, 88, "fused"), (2, 16, 300, 88, "fused"),
+                     (1, 4, 1024, 80, "fused")]
+
+
+def _bf16_views(gen, B, S, H, D, layout):
+    if layout == "fused":
+        return _qkv_fused(gen, B, S, H, D, torch.bfloat16)
+    flat = lambda: torch.randn(B * S * H * D + 1, generator=gen,
+                               device="cuda").bfloat16()
+    return tuple(flat()[1:].view(B, S, H, D) for _ in range(3))
+
+
+def _qkv_fused(gen, B, S, H, D, dtype):
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen, device="cuda").to(dtype)
+    return tuple(t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("B,H,S,D,layout", BF16_DESIGN_CASES)
+def test_short_mha_bf16_designs(gen, exact, B, H, S, D, layout):
+    """Each bf16 design against the plain version within 2**-6 (a rounding
+    of p or of the output one bf16 ulp apart), the exact epilogue also
+    against mha (the arithmetic the ViT's default route stands in for; the
+    same 2**-6 for the same reason), and a second call bit for bit (no
+    atomics, no split over keys)."""
+    q, k, v = _bf16_views(gen, B, S, H, D, layout)
+    assert TF._vec(q, (q, k, v)) == int(layout == "fused")
+    one_pass = TF._lib().seed_short_mha_bf16_one_pass(S, D, TF._mode(exact, D))
+    assert one_pass == int(S <= 264)
+    before = short_mha.launches
+    got = short_mha(q, k, v, D ** -0.5, exact)
+    assert short_mha.launches == before + 1
+    want = short_mha_plain(q, k, v, D ** -0.5, exact)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -6
+    if exact:
+        ref = mha(q, k, v)
+        assert (got.float() - ref.float()).abs().max().item() <= 2.0 ** -6
+    again = short_mha(q, k, v, D ** -0.5, exact)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_encode_launches_short_mha_once_a_block_in_bf16(gen):
+    """The default SEED_TOKENIZER encode at B=2: in bf16 each of the 39 ViT
+    blocks runs its attention through short_mha's exact epilogue (one
+    launch a block), in fp32 through mha (none)."""
+    from seed_tpu_torch.models import seed_tokenizer as ST
+    params = ST.init_seed_tokenizer(gen, ST.SEED_TOKENIZER, torch.float32)
+    images = torch.randn(2, 224, 224, 3, generator=gen, device="cuda")
+    depth = ST.SEED_TOKENIZER.vit.depth
+    with torch.inference_mode():
+        before = short_mha.launches
+        ST.encode(params, images, ST.SEED_TOKENIZER)
+        torch.cuda.synchronize()
+        assert short_mha.launches == before
+        params = tree_map(lambda t: t.to(torch.bfloat16)
+                          if t.is_floating_point() else t, params)
+        ids = ST.encode(params, images.bfloat16(), ST.SEED_TOKENIZER)
+        torch.cuda.synchronize()
+        assert short_mha.launches == before + depth
+        assert ids.shape == (2, 32) and ids.min() >= 0 and ids.max() < 8192
+
+
 # fp32 only (Sq, Sk, D, layout): Sq that the 16-row groups do not divide
 # (65: a 3-group and a 2-group tile; 257: 4 + 4 + 3 + 3 + 3 groups), one
 # row, Sq != Sk both ways, D below one 32-column slab, odd D (4-byte

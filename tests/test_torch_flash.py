@@ -160,6 +160,64 @@ def test_flash_attention_short_route_is_differentiable():
         np.testing.assert_allclose(f32(t.grad), f32(r.grad), atol=1e-5, rtol=1e-5)
 
 
+# (device, dtype, Sq, Sk, H, h_kv, D, takes the kernel): the encode's call
+# (B=256, S=257, 16 heads of 88), the CLIP towers' D = 64 and 80, a longer
+# sequence the short kernel still takes; fp32, the CPU, TINY_VIT's 5 tokens,
+# 1025 tokens (past the short kernel), 2048 (its VMEM estimate) and fewer kv
+# heads than q heads stay on mha
+ROUTE_CASES = [
+    ("cuda", torch.bfloat16, 257, 257, 16, 16, 88, True),
+    ("cuda", torch.bfloat16, 257, 257, 16, 16, 64, True),
+    ("cuda", torch.bfloat16, 257, 257, 16, 16, 80, True),
+    ("cuda", torch.bfloat16, 512, 512, 2, 2, 88, True),
+    ("cuda", torch.float32, 257, 257, 16, 16, 88, False),
+    ("cpu", torch.bfloat16, 257, 257, 16, 16, 88, False),
+    ("cuda", torch.bfloat16, 5, 5, 2, 2, 16, False),
+    ("cuda", torch.bfloat16, 1025, 1025, 2, 2, 88, False),
+    ("cuda", torch.bfloat16, 257, 2048, 2, 2, 88, False),
+    ("cuda", torch.bfloat16, 257, 257, 16, 8, 88, False),
+]
+
+
+@pytest.mark.parametrize("device,dtype,Sq,Sk,H,h_kv,D,takes", ROUTE_CASES)
+def test_short_exact_route_decides_from_the_input(device, dtype, Sq, Sk, H,
+                                                  h_kv, D, takes):
+    """exact_attention's choice reads only the input's device, dtype and
+    shape (stand-ins here: no card is needed to decide)."""
+    from types import SimpleNamespace
+    dev = torch.device(device)
+    q = SimpleNamespace(shape=(256, Sq, H, D), dtype=dtype, device=dev)
+    k = SimpleNamespace(shape=(256, Sk, h_kv, D), dtype=dtype, device=dev)
+    assert TF.short_exact_route(q, k) is takes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_block_attention_on_the_cpu_is_mha(monkeypatch, dtype):
+    """On the CPU the ViT block's default attention is mha itself, bit for
+    bit, and reaches no short_mha; with the route forced open, the kernel's
+    exact epilogue (its plain version here) gives mha's numbers: fp32 within
+    1e-6 (the softmax's division against p / l), bf16 within 2**-6 (one
+    rounding of p or of the output a bf16 ulp apart)."""
+    from seed_tpu_torch.models import vit as TV
+    arrays = qkv(257, 257, 2, 88, B=2)
+    q, k, v = as_torch(arrays, dtype)
+    calls = []
+    plain = TF.short_mha_plain
+    monkeypatch.setattr(TF, "short_mha", lambda *a, exact:
+                        calls.append(exact) or plain(*a, exact))
+    assert torch.equal(TF.exact_attention(q, k, v), mha(q, k, v)) and not calls
+    gen = torch.Generator().manual_seed(0)
+    params = TV.init_vit(gen, TV.TINY_VIT, dtype=dtype, device="cpu")
+    x = torch.randn(2, 5, TV.TINY_VIT.dim, generator=gen).to(dtype)
+    TV.block_apply(params["blocks"][0], x, TV.TINY_VIT)
+    assert not calls
+    monkeypatch.setattr(TF, "short_exact_route", lambda q, k: True)
+    got = TF.exact_attention(q, k, v)
+    assert calls == [True]
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -6
+    assert (got.float() - mha(q, k, v).float()).abs().max().item() <= tol
+
+
 def test_gradients_gqa_sum_over_repeated_heads():
     arrays = qkv(256, 256, 4, 64, h_kv=2)
 

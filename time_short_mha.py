@@ -12,11 +12,15 @@ L2 flushed before each call).
 
 Cases: fp32 at ``train_tokenizer`` stage 1's shape (B=16, S=257, H=16, D=88,
 q/k/v strided views of one fused projection), fast epilogue (the path's) and
-exact; bf16 at the ViT encode's (B=8, exact and fast). Each is held against
-its plain version first (2e-5 in fp32, 2**-6 in bf16) and timed beside it,
-``scaled_dot_product_attention`` on the same inputs and the bound (4 B H S^2 D
-operations at the io type's peak, q, k, v and o once). One JSON line per case
-with the card's name and power limit; a failed check exits non-zero.
+exact; bf16 at the ViT encode's, B=8 (the chat and smoke encodes) and B=256
+(the pre-tokenization batch), exact (the default encode's) and fast. Each is
+held against its plain version first (2e-5 in fp32, 2**-6 in bf16) and timed
+beside it, ``scaled_dot_product_attention`` on the same inputs and the bound
+(4 B H S^2 D operations at the io type's peak, q, k, v and o once). A bf16
+line names the design that ran (``design``: one pass, or recompute per
+pass, the only design of a tree whose library does not report it). One JSON
+line per case with the card's name and power limit; a failed check exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ import chip_smoke
 
 # (dtype, B, exact): the tokenizer training's fp32 call, the encode's bf16
 CASES = [(torch.float32, 16, False), (torch.float32, 16, True),
-         (torch.bfloat16, 8, True), (torch.bfloat16, 8, False)]
+         (torch.bfloat16, 8, True), (torch.bfloat16, 8, False),
+         (torch.bfloat16, 256, True), (torch.bfloat16, 256, False)]
 S, H, D = 257, 16, 88
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6}
 
@@ -49,6 +54,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     import torch.nn.functional as F
     from seed_tpu_torch.ops import kernels
+    from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
     if not Path(kernels.__file__).resolve().is_relative_to(tree):
         raise AssertionError(f"seed_tpu_torch came from {kernels.__file__}, "
@@ -70,6 +76,11 @@ def main() -> None:
         if not err <= TOL[dtype]:
             raise AssertionError(f"short_mha {dtype} exact={exact}: "
                                  f"max_abs_err {err} > {TOL[dtype]}")
+        design, lib = None, TF._lib()
+        if dtype == torch.bfloat16:     # a tree without the query has one
+            one_pass = (hasattr(lib, "seed_short_mha_bf16_one_pass") and
+                        lib.seed_short_mha_bf16_one_pass(S, D, TF._mode(exact, D)))
+            design = "one_pass" if one_pass else "recompute"
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         bms, by = chip_smoke.bound_ms(4 * B * S * H * D * dtype.itemsize,
                                       4 * B * H * S * S * D,
@@ -78,7 +89,7 @@ def main() -> None:
             "tree": str(tree), "kernel": "short_mha",
             "shape": dict(B=B, S=S, H=H, D=D, exact=exact,
                           dtype=str(dtype).split(".")[-1]),
-            "max_abs_err": err, "tol": TOL[dtype],
+            "design": design, "max_abs_err": err, "tol": TOL[dtype],
             "ms": chip_smoke.time_ms(lambda: short_mha(q, k, v, scale, exact),
                                      20, flush),
             "plain_ms": chip_smoke.time_ms(
