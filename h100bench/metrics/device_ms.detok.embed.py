@@ -1,0 +1,13 @@
+"""device_ms.detok.embed (ms/image), layer "model step": device time of the
+operations launched in the ``tokenizer.decode_embedding`` span and
+everything under it: the codebook rows, ``decode_task``, the four ViT
+blocks, ``image_down`` and ``distill_image_proj``, over the images of the
+slice's ``unclip.generate`` spans. The device operations launched inside the
+program's own spans, each given to the innermost (``_detok_split``); the
+nine ``device_ms`` metrics of the de-tokenizer are a partition of the
+program's device time."""
+from h100bench.metrics._detok_split import device_ms
+
+
+def read(run):
+    return device_ms(run, "detok.embed")

@@ -1,0 +1,13 @@
+"""device_ms.unet.rest (ms/image), layer "model step": device time of the
+operations launched in ``unet``'s own time and its other children: conv in /
+out, the down- and upsampling convolutions, the time and class embeddings,
+proj in / out, LayerNorms, skip concatenations, residual adds, over the
+images of the slice's ``unclip.generate`` spans. The device operations
+launched inside the program's own spans, each given to the innermost
+(``_detok_split``); the nine ``device_ms`` metrics of the de-tokenizer are a
+partition of the program's device time."""
+from h100bench.metrics._detok_split import device_ms
+
+
+def read(run):
+    return device_ms(run, "unet.rest")

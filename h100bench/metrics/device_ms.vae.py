@@ -1,0 +1,11 @@
+"""device_ms.vae (ms/image), layer "model step": device time of the operations
+launched in the ``vae`` span and everything under it (the AutoencoderKL
+decoder to 768 x 768), over the images of the slice's ``unclip.generate``
+spans. The device operations launched inside the program's own spans, each
+given to the innermost (``_detok_split``); the nine ``device_ms`` metrics of
+the de-tokenizer are a partition of the program's device time."""
+from h100bench.metrics._detok_split import device_ms
+
+
+def read(run):
+    return device_ms(run, "vae")

@@ -176,12 +176,13 @@ def decode_embedding(params, indices: torch.Tensor,
                      cfg: SeedTokenizerConfig = SEED_TOKENIZER) -> torch.Tensor:
     """token ids [B, Q] -> unCLIP image embedding [B, image_embed_dim]
     (Blip2QformerQuantizer.get_codebook_entry, :309-338)."""
-    z_q = VQ.lookup(params["vq"], indices)
-    h = torch.tanh(L.linear(params["decode_task"]["fc1"], z_q))
-    h = L.linear(params["decode_task"]["fc2"], h)
-    h = h + params["pos_embed_image"].to(h.dtype)
-    h = blocks_apply(params["blocks_image"], h, _decode_block_cfg(cfg))
-    return distill_head(params, h, cfg)
+    with span("tokenizer.decode_embedding", indices, images=indices.shape[0]):
+        z_q = VQ.lookup(params["vq"], indices)
+        h = torch.tanh(L.linear(params["decode_task"]["fc1"], z_q))
+        h = L.linear(params["decode_task"]["fc2"], h)
+        h = h + params["pos_embed_image"].to(h.dtype)
+        h = blocks_apply(params["blocks_image"], h, _decode_block_cfg(cfg))
+        return distill_head(params, h, cfg)
 
 
 def encode_to_embedding(params, images: torch.Tensor,

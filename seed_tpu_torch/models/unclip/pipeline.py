@@ -13,6 +13,11 @@ StableUnCLIPImg2ImgPipeline.__call__ restricted to the SEED use (precomputed
 
 The scheduler's tables are made on the device once per call, and the loop
 indexes them there: the 20 steps enqueue their work without a host sync.
+
+``UnCLIPDecoder.generate`` records one ``unclip.generate`` span a call
+(counts ``images`` and ``steps``; recorded only under a profiler): the
+embedding's noise, the CFG batch, the DDIM steps, guidance, the VAE and the
+pixels' copy to the host, with the ``unet`` and ``vae`` spans inside.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ...utils.metrics_logging import span
 from .schedulers import DDIMScheduler, DDPMNoiser, timestep_embedding
 from .unet import SD21_UNCLIP_UNET, TINY_UNET, UNetConfig, init_unet, unet_apply
 from .vae import SD_VAE, TINY_VAE, VAEConfig, init_vae_decoder, vae_decode
@@ -161,7 +167,9 @@ class UnCLIPDecoder:
         [0, 1], decoded from the same latents for every image."""
         emb = torch.as_tensor(image_embeds, device=self.device)
         lat = self.latents.expand(emb.shape[0], *self.latents.shape[1:])
-        with self._params as p:     # the host copy syncs before release
+        with span("unclip.generate", lat, images=emb.shape[0],
+                  steps=self.num_inference_steps), self._params as p:
+            # the host copy syncs before release
             lat = generate_latents(p, emb, lat, self.cfg,
                                    self.num_inference_steps, self.guidance_scale)
             return decode_to_images(p, lat, self.cfg).float().cpu().numpy()

@@ -129,8 +129,9 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     fp32 [B, dim]."""
     half = dim // 2
     dev = timesteps.device
-    log_period = torch.log(torch.tensor(max_period, dtype=torch.float32,
-                                        device=dev))
+    # a host float: a tensor made on the card here would be a blocking copy,
+    # one host sync in every UNet pass of the denoise loop
+    log_period = float(np.float32(np.log(np.float32(max_period))))
     exponent = -log_period * torch.arange(half, dtype=torch.float32, device=dev)
     exponent = exponent / (half - downscale_freq_shift)
     freqs = torch.exp(exponent)

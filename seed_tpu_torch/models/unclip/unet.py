@@ -19,6 +19,11 @@ seed_tpu (and torch) pad.
 
 GroupNorm keeps seed_tpu's op order: fp32 statistics, two-pass variance,
 fp32 affine, one cast back. Every attention goes through the plain ``mha``.
+
+Spans (``utils/metrics_logging.span``, recorded only under a profiler): one
+``unet`` a pass; inside it ``resnet``, ``group_norm`` (the VAE's too),
+``self_attention`` (attn1 with its projections), ``cross_attention``
+(attn2) and ``ff`` (the GEGLU MLP).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 
 from ... import resolve_device
 from ...ops.attention import mha
+from ...utils.metrics_logging import span
 from .. import layers as L
 from .schedulers import timestep_embedding
 
@@ -73,12 +79,13 @@ def conv2d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
 
 
 def group_norm(p, x: torch.Tensor, groups: int, eps: float = 1e-5) -> torch.Tensor:
-    B, H, W, C = x.shape
-    xf = x.float().reshape(B, H, W, groups, C // groups)
-    mean = xf.mean(dim=(1, 2, 4), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2, 4), keepdim=True)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
-    return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    with span("group_norm", x):
+        B, H, W, C = x.shape
+        xf = x.float().reshape(B, H, W, groups, C // groups)
+        mean = xf.mean(dim=(1, 2, 4), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2, 4), keepdim=True)
+        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
+        return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -118,14 +125,15 @@ def init_resnet(gen, cin, cout, temb_dim, dtype=torch.float32, device="cuda"):
 
 
 def resnet_apply(p, x, temb, groups):
-    h = F.silu(group_norm(p["norm1"], x, groups))
-    h = conv2d(p["conv1"], h)
-    t = L.linear(p["time_emb_proj"], F.silu(temb))
-    h = h + t[:, None, None, :].to(h.dtype)
-    h = F.silu(group_norm(p["norm2"], h, groups))
-    h = conv2d(p["conv2"], h)
-    skip = conv2d(p["conv_shortcut"], x) if "conv_shortcut" in p else x
-    return skip + h
+    with span("resnet", x):
+        h = F.silu(group_norm(p["norm1"], x, groups))
+        h = conv2d(p["conv1"], h)
+        t = L.linear(p["time_emb_proj"], F.silu(temb))
+        h = h + t[:, None, None, :].to(h.dtype)
+        h = F.silu(group_norm(p["norm2"], h, groups))
+        h = conv2d(p["conv2"], h)
+        skip = conv2d(p["conv_shortcut"], x) if "conv_shortcut" in p else x
+        return skip + h
 
 
 # --------------------------- transformer block -----------------------------
@@ -166,13 +174,19 @@ def init_transformer_block(gen, dim, kv_dim, dtype=torch.float32, device="cuda")
 
 def transformer_block_apply(p, x, ctx, heads):
     h = L.layer_norm(p["norm1"], x)
-    x = x + attention_apply(p["attn1"], h, h, heads)
-    x = x + attention_apply(p["attn2"], L.layer_norm(p["norm2"], x), ctx, heads)
+    with span("self_attention", h):
+        a = attention_apply(p["attn1"], h, h, heads)
+    x = x + a
+    h = L.layer_norm(p["norm2"], x)
+    with span("cross_attention", h):
+        a = attention_apply(p["attn2"], h, ctx, heads)
+    x = x + a
     h = L.layer_norm(p["norm3"], x)
-    h = L.linear(p["ff"]["proj"], h)
-    a, gate = h.chunk(2, dim=-1)
-    h = a * L.gelu(gate)
-    return x + L.linear(p["ff"]["out"], h)
+    with span("ff", h):
+        h = L.linear(p["ff"]["proj"], h)
+        a, gate = h.chunk(2, dim=-1)
+        h = L.linear(p["ff"]["out"], a * L.gelu(gate))
+    return x + h
 
 
 def init_spatial_transformer(gen, c, kv_dim, dtype=torch.float32, device="cuda"):
@@ -266,53 +280,54 @@ def unet_apply(params, latents: torch.Tensor, timesteps: torch.Tensor,
                cfg: UNetConfig = SD21_UNCLIP_UNET) -> torch.Tensor:
     """latents [B,H,W,4] NHWC, timesteps [B], ctx [B,M,kv], class_labels
     [B, class_embed_input_dim] -> noise/v prediction [B,H,W,4]."""
-    C = cfg.block_channels
-    G = cfg.norm_groups
+    with span("unet", latents):
+        C = cfg.block_channels
+        G = cfg.norm_groups
 
-    temb = timestep_embedding(timesteps, C[0], flip_sin_to_cos=True,
-                              downscale_freq_shift=0.0)
-    temb = temb.to(latents.dtype)
-    te = params["time_embedding"]
-    temb = L.linear(te["linear_2"], F.silu(L.linear(te["linear_1"], temb)))
-    if class_labels is not None and "class_embedding" in params:
-        ce = params["class_embedding"]
-        cemb = L.linear(ce["linear_2"], F.silu(
-            L.linear(ce["linear_1"], class_labels.to(temb.dtype))))
-        temb = temb + cemb          # unCLIP conditioning enters here
+        temb = timestep_embedding(timesteps, C[0], flip_sin_to_cos=True,
+                                  downscale_freq_shift=0.0)
+        temb = temb.to(latents.dtype)
+        te = params["time_embedding"]
+        temb = L.linear(te["linear_2"], F.silu(L.linear(te["linear_1"], temb)))
+        if class_labels is not None and "class_embedding" in params:
+            ce = params["class_embedding"]
+            cemb = L.linear(ce["linear_2"], F.silu(
+                L.linear(ce["linear_1"], class_labels.to(temb.dtype))))
+            temb = temb + cemb          # unCLIP conditioning enters here
 
-    ctx = encoder_hidden_states
-    x = conv2d(params["conv_in"], latents)
-    skips = [x]
-    for i, block in enumerate(params["down_blocks"]):
-        heads = cfg.attention_head_dim[i]
-        for j, resnet in enumerate(block["resnets"]):
-            x = resnet_apply(resnet, x, temb, G)
-            if block["attentions"]:
-                x = spatial_transformer_apply(block["attentions"][j], x, ctx,
-                                              heads, G)
-            skips.append(x)
-        if "downsample" in block:
-            x = conv2d(block["downsample"], x, stride=2)
-            skips.append(x)
+        ctx = encoder_hidden_states
+        x = conv2d(params["conv_in"], latents)
+        skips = [x]
+        for i, block in enumerate(params["down_blocks"]):
+            heads = cfg.attention_head_dim[i]
+            for j, resnet in enumerate(block["resnets"]):
+                x = resnet_apply(resnet, x, temb, G)
+                if block["attentions"]:
+                    x = spatial_transformer_apply(block["attentions"][j], x, ctx,
+                                                  heads, G)
+                skips.append(x)
+            if "downsample" in block:
+                x = conv2d(block["downsample"], x, stride=2)
+                skips.append(x)
 
-    mid = params["mid_block"]
-    x = resnet_apply(mid["resnets"][0], x, temb, G)
-    x = spatial_transformer_apply(mid["attentions"][0], x, ctx,
-                                  cfg.attention_head_dim[-1], G)
-    x = resnet_apply(mid["resnets"][1], x, temb, G)
+        mid = params["mid_block"]
+        x = resnet_apply(mid["resnets"][0], x, temb, G)
+        x = spatial_transformer_apply(mid["attentions"][0], x, ctx,
+                                      cfg.attention_head_dim[-1], G)
+        x = resnet_apply(mid["resnets"][1], x, temb, G)
 
-    n_levels = len(C)
-    for bi, block in enumerate(params["up_blocks"]):
-        level = n_levels - 1 - bi
-        heads = cfg.attention_head_dim[level]
-        for j, resnet in enumerate(block["resnets"]):
-            x = torch.cat([x, skips.pop()], dim=-1)
-            x = resnet_apply(resnet, x, temb, G)
-            if block["attentions"]:
-                x = spatial_transformer_apply(block["attentions"][j], x, ctx,
-                                              heads, G)
-        if "upsample" in block:
-            x = conv2d(block["upsample"], upsample_nearest(x))
+        n_levels = len(C)
+        for bi, block in enumerate(params["up_blocks"]):
+            level = n_levels - 1 - bi
+            heads = cfg.attention_head_dim[level]
+            for j, resnet in enumerate(block["resnets"]):
+                x = torch.cat([x, skips.pop()], dim=-1)
+                x = resnet_apply(resnet, x, temb, G)
+                if block["attentions"]:
+                    x = spatial_transformer_apply(block["attentions"][j], x, ctx,
+                                                  heads, G)
+            if "upsample" in block:
+                x = conv2d(block["upsample"], upsample_nearest(x))
 
-    x = F.silu(group_norm(params["conv_norm_out"], x, G))
-    return conv2d(params["conv_out"], x)
+        x = F.silu(group_norm(params["conv_norm_out"], x, G))
+        return conv2d(params["conv_out"], x)

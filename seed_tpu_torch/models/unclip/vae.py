@@ -5,7 +5,8 @@ latent 4ch -> post_quant_conv 1x1 -> conv_in -> mid (resnet, self-attention,
 resnet) -> 4 up levels of 3 resnets with a nearest 2x upsample between ->
 GroupNorm -> silu -> conv_out 3ch. Channels (512, 512, 256, 128) going up;
 output in [-1, 1]. NHWC activations and channels_last OIHW conv kernels, as
-in ``unet``; the mid attention (one head of 512) goes through ``mha``.
+in ``unet``; the mid attention (one head of 512) goes through ``mha``. One
+``vae`` span a decode (its GroupNorms record ``group_norm`` spans inside).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from ... import resolve_device
 from ...ops.attention import mha
+from ...utils.metrics_logging import span
 from .. import layers as L
 from .unet import conv2d, group_norm, init_conv, init_gn, upsample_nearest
 
@@ -112,16 +114,17 @@ def vae_decode(params, latents: torch.Tensor,
                cfg: VAEConfig = SD_VAE) -> torch.Tensor:
     """latents [B,h,w,4] (already divided by scaling_factor) -> images
     [B, h * upscale, w * upscale, 3] in [-1, 1]."""
-    G = cfg.norm_groups
-    x = conv2d(params["post_quant_conv"], latents)
-    x = conv2d(params["conv_in"], x)
-    x = _resnet(params["mid"]["resnets"][0], x, G)
-    x = _attn(params["mid"]["attn"], x, G)
-    x = _resnet(params["mid"]["resnets"][1], x, G)
-    for block in params["up_blocks"]:
-        for r in block["resnets"]:
-            x = _resnet(r, x, G)
-        if "upsample" in block:
-            x = conv2d(block["upsample"], upsample_nearest(x))
-    x = F.silu(group_norm(params["conv_norm_out"], x, G))
-    return conv2d(params["conv_out"], x)
+    with span("vae", latents):
+        G = cfg.norm_groups
+        x = conv2d(params["post_quant_conv"], latents)
+        x = conv2d(params["conv_in"], x)
+        x = _resnet(params["mid"]["resnets"][0], x, G)
+        x = _attn(params["mid"]["attn"], x, G)
+        x = _resnet(params["mid"]["resnets"][1], x, G)
+        for block in params["up_blocks"]:
+            for r in block["resnets"]:
+                x = _resnet(r, x, G)
+            if "upsample" in block:
+                x = conv2d(block["upsample"], upsample_nearest(x))
+        x = F.silu(group_norm(params["conv_norm_out"], x, G))
+        return conv2d(params["conv_out"], x)

@@ -1,7 +1,8 @@
 """The port's program spans (``utils/metrics_logging.span``) on the tokenizer
 encode path: off without a profiler, the span tree of one preprocess +
 encode under a CPU profiler, its clock shared with the profiler's events,
-and (on the card) device times that add up."""
+and (on the card) device times that add up. On the de-tokenize path: off
+without a profiler, and the shape of its span tree."""
 import json
 import tracemalloc
 
@@ -145,3 +146,84 @@ def test_device_times_add_up_on_the_card(spans):
         below = sum(c.device_ms for c in kids.get(r.span_id, []))
         assert r.device_self_ms + below == pytest.approx(r.device_ms,
                                                          rel=1e-9)
+
+
+# ------------------------- the de-tokenizer's spans --------------------------
+
+def _detok(steps=2):
+    """codes -> pixels through ``SeedLlamaInterface.decode_image`` with the
+    tiny de-tokenizer attached, on the CPU."""
+    import dataclasses
+    from seed_tpu_torch.models.unclip import TINY_UNCLIP, UnCLIPDecoder, init_unclip
+    from seed_tpu_torch.serving.multimodal import SeedLlamaInterface
+    tok_cfg = dataclasses.replace(CFG, image_embed_dim=TINY_UNCLIP.image_embed_dim)
+    gen = torch.Generator().manual_seed(0)
+    svc = SeedLlamaInterface(
+        None, ST.init_seed_tokenizer(gen, tok_cfg, device="cpu"), tok_cfg,
+        diffusion=UnCLIPDecoder(init_unclip(gen, TINY_UNCLIP, device="cpu"),
+                                TINY_UNCLIP, num_inference_steps=steps,
+                                dtype=torch.float32, device="cpu"),
+        device="cpu")
+    codes = torch.randint(0, tok_cfg.codebook_size, (2, tok_cfg.qformer.query_len),
+                          generator=gen).numpy()
+    return lambda: svc.decode_image(codes)
+
+
+def test_detok_spans_off_record_nothing(spans):
+    decode = _detok()
+    px = decode()
+    assert ML.recorded_spans() == []
+    traced, _, recs = _traced(decode)
+    assert recs and (px == traced).all()
+
+
+def test_detok_span_tree(spans):
+    from seed_tpu_torch.models.unclip import TINY_UNCLIP
+    steps = 2
+    _, _, recs = _traced(_detok(steps))
+    by_id = {r.span_id: r for r in recs}
+    kids = _children(recs)
+    roots = [r for r in recs if r.parent_id is None]
+    assert [r.name for r in roots] == ["tokenizer.decode_embedding",
+                                       "unclip.generate"]
+    assert roots[0].counts == {"images": 2}
+    assert roots[1].counts == {"images": 2, "steps": steps}
+    gen = roots[1]
+    assert sorted(r.name for r in kids[gen.span_id]) == ["unet"] * steps + ["vae"]
+    u = TINY_UNCLIP.unet
+    # transformers: L a level with attention going down, one in the middle,
+    # L + 1 a level with attention going up
+    blocks = sum(u.attn_levels) * (2 * u.layers_per_block + 1) + 1
+    # down L, up L + 1 a level, two in the middle
+    resnets = len(u.block_channels) * (2 * u.layers_per_block + 1) + 2
+    for unet in (r for r in kids[gen.span_id] if r.name == "unet"):
+        below = [r.name for r in kids[unet.span_id]]
+        for name in ("self_attention", "cross_attention", "ff"):
+            assert below.count(name) == blocks, name
+        assert below.count("resnet") == resnets
+        # directly under unet: a transformer's GroupNorm each, the output's
+        assert below.count("group_norm") == blocks + 1
+    blocks_below = ("self_attention", "cross_attention", "ff")
+    for r in recs:
+        names, p = [], r
+        while p is not None:
+            names.append(p.name)
+            p = by_id.get(p.parent_id)
+        assert names[-1] in ("tokenizer.decode_embedding", "unclip.generate")
+        # a transformer block's parts sit directly in their UNet pass and
+        # never in one another
+        if r.name in blocks_below:
+            assert names[1] == "unet", names
+        if r.name in blocks_below + ("resnet", "group_norm"):
+            assert ("unet" in names) != ("vae" in names), names
+        if "unet" in names[1:]:
+            assert sum(n in blocks_below for n in names) <= 1, names
+        if r.name == "group_norm":
+            assert not kids.get(r.span_id)
+            assert names[1] in ("unet", "resnet", "vae"), names
+        if r.name == "resnet":
+            assert names[1] == "unet", names
+            assert sorted(c.name for c in kids[r.span_id]) == [
+                "group_norm", "group_norm", "linear"]
+        if r.name in ("unet", "vae"):
+            assert names[1:] == ["unclip.generate"], names
