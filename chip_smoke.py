@@ -15,7 +15,12 @@ Phases, each printing lines of its own:
              (int8_matmul also against cuBLAS on a pre-converted weight;
              short_mha at B=8 and at the b256 encode's B=256, which is the
              kernels line's row 1); int8_matmul and w8a8_matmul repeat their bits at every case;
-             short_mha's gradient (the mha recompute) against mha. The fp32
+             short_mha's gradient (the mha recompute) against mha. The
+             flash forward also at the UNet's self-attention (non-causal,
+             B=2, D=64: 9,216 x 5, 2,304 x 10 and 576 x 20 heads, routed
+             by flash_attention.unmasked_attention, and the mid block's 144
+             x 20, which is not), timed in bf16 beside its bound, mha (the
+             plain path the UNet takes elsewhere) and the library. The fp32
              instances off every path, int8_matmul with fp32 x (M=256,
              K=N=4096; two TF32 products against the exact int8 weight) and
              the fp32 flash forward, dq and dk/dv (split TF32; dq and dk/dv
@@ -52,11 +57,14 @@ Phases, each printing lines of its own:
              fresh trainer that restored it.
 8. detokenize — the SD2.1 unCLIP de-tokenizer (UNet + VAE, seeded weights),
              run after phase 6 on its objects (phase 6's /generate service
-             already has it attached): one UNet pass in bf16 against fp32;
-             encode -> 8B int8 generate (force_image) -> a valid image block
-             appended -> SeedLlamaInterface.split_output -> 768x768 pixels
-             through the offloaded bf16 decoder (20 DDIM steps, guidance 10)
-             -> PNG; the same decode in fp32 against bf16.
+             already has it attached): one UNet pass in bf16 against fp32
+             (the bf16 pass launches the flash forward 15 times, the
+             self-attention of levels 0-2); encode -> 8B int8 generate
+             (force_image) -> a valid image block appended ->
+             SeedLlamaInterface.split_output -> 768x768 pixels through the
+             offloaded bf16 decoder (20 DDIM steps, guidance 10, 300 flash
+             forward launches) -> PNG; the same decode in fp32 against
+             bf16.
 9. train_llm — python3 -m seed_tpu_torch.train.train_llm on pkl tar shards
              written under build/: SEED-LLaMA-8B + LoRA through the flash
              kernels (--batch-size 8 --grad-accum 2 --max-length 1024), 4
@@ -110,13 +118,16 @@ Phases, each printing lines of its own:
              against merge_lora_weights in memory; acceptance --synthetic
              --device cuda (exit 0); check_full_geometry for the 8B and 14B,
              LoRA and --full, at --tp 2 --devices=8. short_mha launches 39
-             times for each of their 9 bf16 encodes, no other kernel runs.
+             times for each of their 9 bf16 encodes, the flash forward 300
+             times for seed_tokenizer_inference's bf16 decode, no other
+             kernel runs.
 
 Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
 phase 9 (train_llm), phase 10 (train_tokenizer), phases 11a-11b (eval) and
 phase 12a (parallel) are the main paths: the launch counters of a path's kernels are set to 0
-just before it and read just after. Phase 8 launches none of the six
-kernels and phase 13 only short_mha (its bf16 encodes; the lines show the
+just before it and read just after. Phase 8 launches only the flash
+forward (the bf16 UNet's self-attention) and phase 13 only short_mha and
+the flash forward (its bf16 encodes and decode; the lines show the
 counts); neither is counted on a path; nor are 11c
 and 11d (11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
 Every failure raises, so the script exits non-zero and prints no result line.
@@ -546,15 +557,24 @@ FLASH_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.0, 2.0 ** -5)}
 # bf16 forward's and dq's 32-row kv tiles, dk/dv's split columns) with Sq
 # not a multiple of the 64-row blocks; a ragged chunk at an offset at D=64;
 # D=36 (element-wise staging) with S a multiple of no tile; S=4096, twice
-# the 8B's max_seq_len (dk/dv summing over 256 q tiles, dq over 256 kv tiles)
-FLASH_CASES = [(4, 1024, 1024, 32, 128, True, 0, True),
-               (2, 300, 300, 4, 64, True, 0, False),
-               (2, 257, 257, 4, 88, False, 0, False),
-               (2, 256, 512, 4, 128, True, 256, False),
-               (2, 333, 333, 4, 256, True, 0, False),
-               (1, 190, 450, 4, 64, True, 260, False),
-               (2, 100, 100, 4, 36, True, 0, False),
-               (1, 4096, 4096, 4, 128, True, 0, False)]
+# the 8B's max_seq_len (dk/dv summing over 256 q tiles, dq over 256 kv tiles);
+# the UNet's self-attention at CFG batch 2 (forward only, as the de-tokenizer
+# runs it): levels 0-2 over 9,216, 2,304 and 576 tokens, the forward's route,
+# and the mid block's 144, below MIN_FLASH_SEQ and so on mha. The last field:
+# "train" timed with the backward, "check" fwd and bwd checked only, "unet"
+# the forward checked (also against mha) and timed in bf16 beside mha.
+FLASH_CASES = [(4, 1024, 1024, 32, 128, True, 0, "train"),
+               (2, 300, 300, 4, 64, True, 0, "check"),
+               (2, 257, 257, 4, 88, False, 0, "check"),
+               (2, 256, 512, 4, 128, True, 256, "check"),
+               (2, 333, 333, 4, 256, True, 0, "check"),
+               (1, 190, 450, 4, 64, True, 260, "check"),
+               (2, 100, 100, 4, 36, True, 0, "check"),
+               (1, 4096, 4096, 4, 128, True, 0, "check"),
+               (2, 9216, 9216, 5, 64, False, 0, "unet"),
+               (2, 2304, 2304, 10, 64, False, 0, "unet"),
+               (2, 576, 576, 20, 64, False, 0, "unet"),
+               (2, 144, 144, 20, 64, False, 0, "unet")]
 
 
 def _pairs(Sq, Sk, causal, q_offset):
@@ -567,7 +587,8 @@ def _pairs(Sq, Sk, causal, q_offset):
 def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     """Kernel rows 3-5 against their plain versions; times at the training
     shape in bf16 (the record) and fp32, and the dq + dk/dv pair against the
-    library's whole backward."""
+    library's whole backward; the forward at the UNet's shapes against mha
+    and the library (the record's ``unet``)."""
     import torch.nn.functional as F
     from seed_tpu_torch.ops import flash_attention as TF
     from seed_tpu_torch.ops.attention import mha, sliced_causal_mask
@@ -575,7 +596,8 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     record = {}
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for B, Sq, Sk, H, D, causal, off, timed in FLASH_CASES:
+    unet = []
+    for B, Sq, Sk, H, D, causal, off, mode in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             mk = lambda S: torch.randn(B, S, H, D, generator=gen,
                                        device="cuda").to(dtype)
@@ -593,6 +615,16 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                                      f"lse {lse_err}")
             worst["flash_fwd"] = max(worst["flash_fwd"], err)
             errs = {"flash_fwd": err, "lse": lse_err}
+            if mode == "unet":
+                if dtype == torch.bfloat16:
+                    unet.append(_flash_unet_case(TF, mha, q, k, v, out, label,
+                                                 flush, name))
+                else:
+                    emit("kernels", kernel="flash_fwd", **label,
+                         max_abs_err=errs, card=name)
+                del q, k, v, dout, out, lse, want, want_lse
+                torch.cuda.empty_cache()
+                continue
             if off == 0:
                 delta = (dout.float() * want.float()).sum(-1)
                 delta = delta.permute(0, 2, 1).contiguous()
@@ -618,7 +650,7 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
                         raise AssertionError(f"{kern} {label}: max_abs_err {e}")
                     worst[kern] = max(worst[kern], e)
                     errs[kern] = max(errs.get(kern, 0.0), e)
-            if not timed:
+            if mode == "check":
                 emit("kernels", kernel="flash", **label, max_abs_err=errs,
                      card=name)
                 continue
@@ -787,7 +819,51 @@ def phase_flash_kernels(name: str, flush: torch.Tensor) -> dict:
     for kern, timing in fp32_bwd.items():
         record[kern]["fp32"] = timing
     record["flash_fwd"]["fp32"]["autograd_step"] = flash_f32_step(name)
+    record["flash_fwd"]["unet"] = unet
     return record
+
+
+def _flash_unet_case(TF, mha, q, k, v, out, label, flush, name) -> dict:
+    """The bf16 forward at one UNet self-attention shape, non-causal: whether
+    ``unmasked_attention`` routes it to the kernel (and then its output is
+    the kernel's, bit for bit), the kernel within FLASH_FWD_TOL of mha, and
+    the kernel timed beside its bound (4·B·H·Sq·Sk·D operations at the bf16
+    peak, or q, k, v, o and lse once at the memory rate), mha and the
+    library's non-causal SDPA (never called by the port)."""
+    import torch.nn.functional as F
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = D ** -0.5
+    before = TF.flash_fwd.launches
+    routed_out = TF.unmasked_attention(q, k, v)
+    routed = TF.flash_fwd.launches == before + 1
+    if routed != (Sq >= TF.MIN_FLASH_SEQ):
+        raise AssertionError(f"unmasked_attention {label}: routed {routed}")
+    if routed and not torch.equal(routed_out, out):
+        raise AssertionError(f"unmasked_attention {label}: not the kernel's "
+                             "output")
+    ref = mha(q, k, v)
+    torch.cuda.synchronize()
+    mha_err = (out.float() - ref.float()).abs().max().item()
+    if not mha_err <= FLASH_FWD_TOL[torch.bfloat16]:
+        raise AssertionError(f"flash_fwd {label}: {mha_err} from mha")
+    del routed_out, ref
+    flops = 2 * 2 * D * B * H * Sq * Sk
+    nbytes = (2 * B * Sq + 2 * B * Sk) * H * D * q.dtype.itemsize + B * H * Sq * 4
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: TF.flash_fwd(q, k, v, False, scale), 10, flush)
+    timing = dict(
+        **label, routed=routed, max_abs_err_vs_mha=mha_err, ms=ms,
+        tflop_per_s=flops / ms * 1e-9, bound_ms=bms, bound_by=by,
+        roofline_share=bms / ms,
+        plain_ms=time_ms(lambda: mha(q, k, v), 3, flush), plain="mha",
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                           10, flush),
+        library="scaled_dot_product_attention, non-causal")
+    emit("kernels", kernel="flash_fwd", what="the UNet's self-attention",
+         card=name, **timing)
+    return timing
 
 
 # The fp32 kernels under autograd on a real step: SEED-LLaMA-8B's width (dim
@@ -1561,6 +1637,12 @@ UNET_BF16_TOL = 5e-2
 # the difference of the two CFG halves tenfold) carry the UNet's bf16 error
 # into the latents, so the pixels differ in place, not on average.
 PIXEL_MEAN_TOL = 0.1
+# flash forward launches of one bf16 UNet pass at 96x96 latents: the
+# self-attention of levels 0-2 (9,216, 2,304 and 576 tokens, five calls
+# each) through flash_attention.unmasked_attention; the mid block's 144
+# tokens and every cross-attention (77 keys) stay on mha
+UNET_FLASH_CALLS = 15
+DDIM_STEPS = 20
 
 
 def _launch_counts() -> dict:
@@ -1609,8 +1691,7 @@ def phase_unet_pass(name: str, p32, p16) -> None:
     ctx = torch.randn((2, cfg.text_ctx_len, cfg.text_ctx_dim), generator=gen,
                       device="cuda")
     emb = torch.randn((1, cfg.image_embed_dim), generator=gen, device="cuda")
-    out, ms, transient = {}, {}, {}
-    before = _launch_counts()
+    out, ms, transient, launched = {}, {}, {}, {}
     with torch.inference_mode():
         cond = noise_image_embeddings(p32, emb, 0, None, cfg)
         labels = torch.cat([torch.zeros_like(cond), cond])
@@ -1622,13 +1703,17 @@ def phase_unet_pass(name: str, p32, p16) -> None:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+            before = _launch_counts()
             out[label] = unet_apply(*args).float()
+            launched[label] = _launched_since(before)
             torch.cuda.synchronize()
             transient[label] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
             ms[label] = time_ms(lambda: unet_apply(*args), iters=3)
-        with FlopCounterMode(display=False) as counter:
-            unet_apply(*args)
-    launched = _launched_since(before)
+            if label == "fp32":
+                # mha's einsums carry the attention's work into the count;
+                # the flash kernel, a ctypes call, is not seen by it
+                with FlopCounterMode(display=False) as counter:
+                    unet_apply(*args)
     flops = counter.get_total_flops()
     ref = out["fp32"]
     if out["bf16"].shape != (2, n, n, 4) or not out["bf16"].isfinite().all():
@@ -1637,8 +1722,10 @@ def phase_unet_pass(name: str, p32, p16) -> None:
     if not (math.isfinite(rel) and rel <= UNET_BF16_TOL):
         raise AssertionError(f"UNet pass: bf16 differs from fp32 by {rel} of "
                              f"the output's scale (bound {UNET_BF16_TOL})")
-    if any(launched.values()):
-        raise AssertionError(f"UNet pass launched a kernel: {launched}")
+    want = {"fp32": dict.fromkeys(launched["fp32"], 0)}
+    want["bf16"] = dict(want["fp32"], flash_fwd=UNET_FLASH_CALLS)
+    if launched != want:
+        raise AssertionError(f"UNet pass launched {launched}, not {want}")
     emit("detokenize", what="one SD21 UNet pass, CFG batch 2 at 96x96x4, "
          "context [2, 77, 1024], t=951; fp32 with TF32 off", ms_bf16=ms["bf16"],
          ms_fp32=ms["fp32"], gflop=flops / 1e9,
@@ -1719,8 +1806,10 @@ def phase_detokenize(name: str, params, tok_params, codes: torch.Tensor,
     png = Image.open(io.BytesIO(base64.b64decode(encode_image_b64(img[0]))))
     if png.format != "PNG" or png.size != (side, side) or png.mode != "RGB":
         raise AssertionError(f"detokenize: PNG {png.format} {png.size} {png.mode}")
-    if any(launched.values()):
-        raise AssertionError(f"detokenize launched a kernel: {launched}")
+    want = dict.fromkeys(launched, 0)
+    want["flash_fwd"] = DDIM_STEPS * UNET_FLASH_CALLS
+    if launched != want:
+        raise AssertionError(f"detokenize launched {launched}, not {want}")
 
     # the same decode, part by part, then in fp32 on the same embedding and
     # latents
@@ -3182,10 +3271,13 @@ def phase_scripts(name: str, scratch: Path) -> None:
     launched = _launched_since(before)
     emit("launches", path="scripts", **launched, card=name)
     # the bf16 encodes run the ViT's attention through short_mha, one launch
-    # a block; acceptance encodes in fp32 on mha
+    # a block; acceptance encodes in fp32 on mha; seed_tokenizer_inference's
+    # one bf16 decode runs the UNet's self-attention through the flash
+    # forward
     from seed_tpu_torch.models.seed_tokenizer import SEED_TOKENIZER
     want = dict.fromkeys(launched, 0)
     want["short_mha"] = SEED_TOKENIZER.vit.depth * encodes
+    want["flash_fwd"] = DDIM_STEPS * UNET_FLASH_CALLS
     if launched != want:
         raise AssertionError(f"the scripts launched {launched}, not {want} "
                              f"({encodes} bf16 encodes)")
@@ -3283,7 +3375,7 @@ def main() -> None:
     for kernel, n in read_and_check("server", server_kernels).items():
         launches[kernel] = launches.get(kernel, 0) + n
 
-    # the de-tokenizer: no kernel of the six, and no path's count
+    # the de-tokenizer: the flash forward in its bf16 UNet, no path's count
     phase_unet_pass(name, unclip32, unclip16)
     phase_detokenize(name, llama_int8, tok_params, codes, unclip32, decoder)
     del unclip32, unclip16
@@ -3395,6 +3487,8 @@ def main() -> None:
         if k == "int8_matmul":    # int8_mm_f32: fp32 x, on no path
             entry["fp32_x"] = dict(record[k]["fp32_x"],
                                    launches=int8_matmul.launches_f32)
+        if k == "flash_fwd":     # the UNet's shapes, bf16
+            entry["unet"] = record[k]["unet"]
         if k.startswith("flash_"):     # the fp32 kernels, on no path
             entry["fp32"] = dict(record[k]["fp32"],
                                  launches=getattr(TF, k).launches_f32)

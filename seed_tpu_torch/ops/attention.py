@@ -5,7 +5,9 @@ the io type before P@V, mask value -1e9. It serves the Q-Former, the LLaMA
 forward, the ViT's attention in fp32, on the CPU and below the kernels'
 lengths, and every other call the short-sequence kernel does not take. A bf16
 ViT block on the card keeps its arithmetic but runs the short kernel's exact
-epilogue (``flash_attention.exact_attention``).
+epilogue (``flash_attention.exact_attention``); the UNet's bf16 attention
+on the card at 256 tokens and more runs the tiled flash forward
+(``flash_attention.unmasked_attention``).
 """
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ attention for the ViT's S=257. Its gradient recomputes through ``mha``, the
 rule of seed_tpu's ``_short_mha`` custom_vjp. ``exact_attention`` is the
 ViT's default attention: ``mha``'s arithmetic, run by the kernel's exact
 epilogue for the bf16 CUDA calls ``short_exact_route`` admits.
+``unmasked_attention`` is the UNet's: the tiled flash forward (below) for
+the bf16 CUDA calls ``tiled_route`` admits, ``mha`` for the rest.
 
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` are the hand-written
 CUDA kernels (csrc/flash_attention.cu) that replace seed_tpu's
@@ -656,13 +658,18 @@ def _short_vmem_bytes(Sq, Sk, H, D, itemsize=2):
     return blocks + scores
 
 
+def _long_enough(Sq: int, Sk: int, D: int) -> bool:
+    """Both lengths from MIN_FLASH_SEQ, D up to 256."""
+    return Sq >= MIN_FLASH_SEQ and Sk >= MIN_FLASH_SEQ and D <= 256
+
+
 def _kernel_sized(Sq: int, Sk: int, D: int) -> bool:
-    """seed_tpu's condition for any attention kernel: both lengths from
-    MIN_FLASH_SEQ, D up to 256, K and V within its VMEM estimate."""
+    """seed_tpu's condition for any attention kernel: ``_long_enough``, K
+    and V within its VMEM estimate."""
     rnd128 = lambda s: -(-s // 128) * 128
     kv_vmem = rnd128(Sk) * rnd128(D) * 2 * 2 * 2
-    return (Sq >= MIN_FLASH_SEQ and Sk >= MIN_FLASH_SEQ and D <= 256
-            and Sk <= MAX_KERNEL_KV and kv_vmem <= 12 * 1024 * 1024)
+    return (_long_enough(Sq, Sk, D) and Sk <= MAX_KERNEL_KV
+            and kv_vmem <= 12 * 1024 * 1024)
 
 
 def _short_sized(Sq: int, Sk: int, H: int, D: int) -> bool:
@@ -672,17 +679,22 @@ def _short_sized(Sq: int, Sk: int, H: int, D: int) -> bool:
             and _short_vmem_bytes(Sq, Sk, H, D) < 12 * 1024 * 1024)
 
 
+def _card_bf16_same_heads(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """q a bf16 CUDA tensor (not a DTensor) and k with q's head count."""
+    from ..parallel.local import is_sharded
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and k.shape[2] == q.shape[2] and not is_sharded(q))
+
+
 def short_exact_route(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether :func:`exact_attention` sends a non-causal, unmasked call to
     the short kernel, decided from q and k alone: a bf16 CUDA tensor (not a
     DTensor) with k's head count, at lengths ``flash_attention`` routes to
     ``short_mha``."""
-    from ..parallel.local import is_sharded
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
-            and k.shape[2] == H and not is_sharded(q)
-            and _kernel_sized(Sq, Sk, D) and _short_sized(Sq, Sk, H, D))
+    return (_card_bf16_same_heads(q, k) and _kernel_sized(Sq, Sk, D)
+            and _short_sized(Sq, Sk, H, D))
 
 
 def exact_attention(q: torch.Tensor, k: torch.Tensor,
@@ -694,6 +706,33 @@ def exact_attention(q: torch.Tensor, k: torch.Tensor,
     which has these rounding points; every other call runs ``mha``."""
     if short_exact_route(q, k):
         return short_mha(q, k, v, q.shape[-1] ** -0.5, exact=True)
+    return mha(q, k, v)
+
+
+def tiled_route(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether :func:`unmasked_attention` sends a non-causal, unmasked call
+    to the tiled flash forward, decided from q and k alone: a bf16 CUDA
+    tensor (not a DTensor) with k's head count, both lengths from
+    MIN_FLASH_SEQ and D up to 256. There is no cap on Sk: seed_tpu's
+    MAX_KERNEL_KV and VMEM estimate bound a Pallas kernel that holds K and V
+    resident, while the CUDA forward streams 64-row K/V tiles through a
+    two-stage ring whose shared memory does not grow with Sk. The length
+    floor is seed_tpu's routing threshold, kept as it is: the card has timed
+    the forward against ``mha`` at 576 tokens and at 144 (``chip_smoke.py``,
+    phase 2), at nothing in between."""
+    return (_card_bf16_same_heads(q, k)
+            and _long_enough(q.shape[1], k.shape[1], q.shape[3]))
+
+
+def unmasked_attention(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Non-causal, unmasked attention on [B, S, H, D] tensors at scale
+    D ** -0.5. Where :func:`tiled_route` says so it runs ``tiled_flash``:
+    fp32 scores in base 2, fp32 running max, sum and accumulator, p rounded
+    to bf16 before P@V and the output rounded once (the online softmax of
+    ``scaled_dot_product_attention``); every other call runs ``mha``."""
+    if tiled_route(q, k):
+        return tiled_flash(q, k, v, False, q.shape[-1] ** -0.5)
     return mha(q, k, v)
 
 

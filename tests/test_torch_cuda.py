@@ -672,7 +672,38 @@ def test_fp32_short_mha_launches_at_the_edge_shapes(gen, S, D, exact):
     assert (out - want).abs().max().item() <= 2e-5
 
 
-# ----------------------- the unCLIP de-tokenizer (no kernel) -----------------
+# ------------------ the unCLIP de-tokenizer (the flash forward) ---------------
+
+# the UNet's self-attention calls that take the flash forward: (tokens,
+# heads of 64) at levels 0-2 of the 96x96 latent, at the CFG batch of 2
+UNET_ROUTED = [(9216, 5), (2304, 10), (576, 20)]
+
+
+@pytest.mark.parametrize("N,heads", UNET_ROUTED)
+def test_unet_self_attention_runs_the_flash_forward(gen, N, heads):
+    """attention_apply at a routed UNet shape launches the flash forward
+    once and equals its projections around unmasked_attention bit for bit.
+    The attention is within 2**-6 of flash_fwd_plain (FLASH_TOL: an output
+    rounding one ulp apart) and of mha (|o| < 4; p rounded after the
+    normalisation in mha and before it here: a rounding of p or of the
+    output one bf16 ulp apart)."""
+    B, C = 2, 64 * heads
+    p = TUN.init_attention(gen, C, C, torch.bfloat16, "cuda")
+    x = torch.randn(B, N, C, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        before = TF.flash_fwd.launches
+        got = TUN.attention_apply(p, x, x, heads)
+        assert TF.flash_fwd.launches == before + 1
+        q, k, v = (L.linear(p[n], x).reshape(B, N, heads, 64)
+                   for n in ("to_q", "to_k", "to_v"))
+        o = TF.unmasked_attention(q, k, v)
+        assert o.is_contiguous() and o.shape == (B, N, heads, 64)
+        assert torch.equal(got, L.linear(p["to_out"], o.reshape(B, N, C)))
+        want_plain, _ = TF.flash_fwd_plain(q, k, v, False, 64 ** -0.5)
+        want_mha = mha(q, k, v)
+    assert want_mha.float().abs().max().item() < 4
+    for want in (want_plain, want_mha):
+        assert (o.float() - want.float()).abs().max().item() <= 2.0 ** -6
 
 @pytest.fixture
 def no_tf32():
@@ -686,8 +717,10 @@ def no_tf32():
 def test_unclip_unet_pass_bf16_against_fp32(gen, no_tf32):
     """One SD2.1-width UNet pass at the decode's shape (CFG batch 2 at
     96x96x4, a [2, 77, 1024] context): bf16 within 5e-2 of the fp32 output's
-    largest magnitude (chip_smoke.py's UNET_BF16_TOL); no kernel of the six
-    is launched."""
+    largest magnitude (chip_smoke.py's UNET_BF16_TOL). The bf16 pass
+    launches the flash forward 15 times (the self-attention over 9,216,
+    2,304 and 576 tokens, five calls each); the fp32 pass launches none, and
+    no other kernel of the six runs."""
     cfg = TU.SD21_UNCLIP
     p32 = TU.init_unet(gen, cfg.unet)
     p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
@@ -701,7 +734,7 @@ def test_unclip_unet_pass_bf16_against_fp32(gen, no_tf32):
         got = TU.unet_apply(p16, lat.bfloat16(), t, ctx.bfloat16(),
                             labels.bfloat16(), cfg.unet)
     assert (short_mha.launches, int8_matmul.launches,
-            TF.flash_fwd.launches) == before
+            TF.flash_fwd.launches) == (*before[:2], before[2] + 15)
     assert got.shape == ref.shape == (2, 96, 96, 4) and got.isfinite().all()
     rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
     assert rel <= 5e-2, rel

@@ -218,6 +218,59 @@ def test_vit_block_attention_on_the_cpu_is_mha(monkeypatch, dtype):
     assert (got.float() - mha(q, k, v).float()).abs().max().item() <= tol
 
 
+# (device, dtype, Sq, Sk, H, h_kv, D, takes the kernel): the UNet's
+# self-attention at levels 0-2 (9,216 x 5, 2,304 x 10, 576 x 20 heads of
+# 64; 9,216 keys is past seed_tpu's MAX_KERNEL_KV), both lengths at
+# MIN_FLASH_SEQ, D = 256; its cross-attention (77 keys), the mid block's
+# 144 tokens, fp32, the CPU, fewer kv heads than q heads, D above 256 (the
+# VAE's one head of 512) and one length below MIN_FLASH_SEQ stay on mha
+TILED_ROUTE_CASES = [
+    ("cuda", torch.bfloat16, 9216, 9216, 5, 5, 64, True),
+    ("cuda", torch.bfloat16, 2304, 2304, 10, 10, 64, True),
+    ("cuda", torch.bfloat16, 576, 576, 20, 20, 64, True),
+    ("cuda", torch.bfloat16, 256, 256, 2, 2, 64, True),
+    ("cuda", torch.bfloat16, 300, 300, 2, 2, 256, True),
+    ("cuda", torch.bfloat16, 9216, 77, 5, 5, 64, False),
+    ("cuda", torch.bfloat16, 144, 144, 20, 20, 64, False),
+    ("cuda", torch.float32, 9216, 9216, 5, 5, 64, False),
+    ("cpu", torch.bfloat16, 9216, 9216, 5, 5, 64, False),
+    ("cuda", torch.bfloat16, 2304, 2304, 10, 5, 64, False),
+    ("cuda", torch.bfloat16, 9216, 9216, 1, 1, 512, False),
+    ("cuda", torch.bfloat16, 255, 2304, 10, 10, 64, False),
+]
+
+
+@pytest.mark.parametrize("device,dtype,Sq,Sk,H,h_kv,D,takes",
+                         TILED_ROUTE_CASES)
+def test_tiled_route_decides_from_the_input(device, dtype, Sq, Sk, H, h_kv,
+                                            D, takes):
+    """unmasked_attention's choice reads only the input's device, dtype and
+    shape (stand-ins here: no card is needed to decide)."""
+    from types import SimpleNamespace
+    dev = torch.device(device)
+    q = SimpleNamespace(shape=(2, Sq, H, D), dtype=dtype, device=dev)
+    k = SimpleNamespace(shape=(2, Sk, h_kv, D), dtype=dtype, device=dev)
+    assert TF.tiled_route(q, k) is takes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_forward_plain_at_a_ragged_unet_shape_matches_mha(dtype):
+    """The forward kernel's function, non-causal at B=2, S=300 (no multiple
+    of the 64-row tiles: the last kv tile is masked), 5 heads of 64, against
+    mha. fp32 within 2e-6: only the order of fp32 sums, the online
+    rescaling and 1 / l against the softmax's division differ (|o| < 1).
+    bf16 within 2**-7: |o| < 1, so a bf16 ulp is at most 2**-8, and the two
+    roundings of each side (p before P@V, normalised in mha and not here;
+    the output) may each land one ulp apart."""
+    q, k, v = as_torch(qkv(300, 300, 5, 64, B=2), dtype)
+    got, _ = TF.flash_fwd_plain(q, k, v, False, 64 ** -0.5)
+    want = mha(q, k, v)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert want.float().abs().max().item() < 1
+    tol = 2e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
 def test_gradients_gqa_sum_over_repeated_heads():
     arrays = qkv(256, 256, 4, 64, h_kv=2)
 

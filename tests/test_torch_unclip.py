@@ -250,6 +250,36 @@ def test_unet_bf16_pass_within_tolerance(sd_like):
     assert err <= 5e-2, err
 
 
+def test_unet_self_attention_takes_the_tiled_route_where_it_opens(
+        sd_like, monkeypatch):
+    """The UNet's attention goes through unmasked_attention. On the CPU its
+    route is shut and no call reaches tiled_flash. Opened by shape alone, as
+    it opens for bf16 on the card, the five level-0 self-attentions of the
+    SD-like bf16 pass (256 tokens, one head of 64: two down, three up) run
+    the flash forward's plain version, while level 1 (64 tokens) and every
+    cross-attention (6 keys) stay on mha; the pass stays within the 5e-2
+    of seed_tpu's fp32 output that the mha pass is held to."""
+    from seed_tpu_torch.ops import flash_attention as TF
+    tcfg, tp, inputs, want = sd_like
+    lat, ts, ctx, cls = map(t, inputs)
+    bf = lambda x: x.to(torch.bfloat16)
+    args = (tree_map(bf, tp), bf(lat), ts, bf(ctx), bf(cls), tcfg)
+    calls = []
+    tiled = TF.tiled_flash
+    monkeypatch.setattr(TF, "tiled_flash", lambda q, k, v, causal, scale:
+                        calls.append((tuple(q.shape), tuple(k.shape), causal,
+                                      scale)) or tiled(q, k, v, causal, scale))
+    shut = T.unet_apply(*args)
+    assert not calls
+    monkeypatch.setattr(TF, "tiled_route", lambda q, k: min(
+        q.shape[1], k.shape[1]) >= TF.MIN_FLASH_SEQ)
+    got = T.unet_apply(*args)
+    assert calls == [((2, 256, 1, 64), (2, 256, 1, 64), False, 0.125)] * 5
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, shut)
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= 5e-2, err
+
+
 def test_vae_decode_equal(tiny):
     jp, tp = tiny
     lat = np.random.RandomState(10).randn(2, 8, 8, 4).astype(np.float32)
