@@ -14,6 +14,14 @@ StableUnCLIPImg2ImgPipeline.__call__ restricted to the SEED use (precomputed
 The scheduler's tables are made on the device once per call, and the loop
 indexes them there: the 20 steps enqueue their work without a host sync.
 
+``UnCLIPDecoder`` replays the UNet pass as a CUDA graph, one captured on the
+first call at each input shape (``CapturedUNetPass``), where eager dispatch
+of its ~2,560 launches would hold the card back; guidance and the DDIM step
+stay eager calls. It replays only with its weights resident on the card
+(offloaded weights change address each call) and no profiler recording; on
+the CPU, offloaded or under a profiler the pass runs eagerly, so that a
+traced call records the pass's spans and launches its kernels one by one.
+
 ``UnCLIPDecoder.generate`` records one ``unclip.generate`` span a call
 (counts ``images`` and ``steps``; recorded only under a profiler): the
 embedding's noise, the CFG batch, the DDIM steps, guidance, the VAE and the
@@ -21,14 +29,16 @@ pixels' copy to the host, with the ``unet`` and ``vae`` spans inside.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ... import resolve_device
-from ...utils.metrics_logging import span
+from ...utils.metrics_logging import _profiling, span
 from .schedulers import DDIMScheduler, DDPMNoiser, timestep_embedding
 from .unet import SD21_UNCLIP_UNET, TINY_UNET, UNetConfig, init_unet, unet_apply
 from .vae import SD_VAE, TINY_VAE, VAEConfig, init_vae_decoder, vae_decode
@@ -98,8 +108,12 @@ def generate_latents(params, image_embeds: torch.Tensor, latents: torch.Tensor,
                      negative_image_embeds: Optional[torch.Tensor] = None,
                      noise_level: int = 0,
                      embed_noise: Optional[torch.Tensor] = None,
-                     prompt_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Denoise loop -> final latents [B, h, w, 4] (pre-VAE)."""
+                     prompt_embeds: Optional[torch.Tensor] = None,
+                     unet_pass: Callable = unet_apply) -> torch.Tensor:
+    """Denoise loop -> final latents [B, h, w, 4] (pre-VAE). ``unet_pass``
+    takes ``unet_apply``'s arguments and runs one pass of the CFG batch (a
+    ``UNetGraphs.bind()`` replays a graph); its context and class
+    labels stay the same over the loop's steps."""
     B = image_embeds.shape[0]
     cond = noise_image_embeddings(params, image_embeds, noise_level,
                                   embed_noise, cfg)
@@ -120,7 +134,7 @@ def generate_latents(params, image_embeds: torch.Tensor, latents: torch.Tensor,
     for i in range(num_inference_steps):
         lat2 = torch.cat([x, x], dim=0)
         t = ts[i].expand(2 * B)
-        pred = unet_apply(params["unet"], lat2, t, ctx, class_labels, cfg.unet)
+        pred = unet_pass(params["unet"], lat2, t, ctx, class_labels, cfg.unet)
         pu, pc = pred.chunk(2, dim=0)
         pred = pu + guidance_scale * (pc - pu)
         x = cfg.scheduler.step(pred, x, alpha_t[i], alpha_prev[i]).to(x.dtype)
@@ -133,6 +147,94 @@ def decode_to_images(params, latents: torch.Tensor,
     return (imgs * 0.5 + 0.5).clamp(0.0, 1.0)   # [-1,1] -> [0,1]
 
 
+def replays_unet(device: torch.device, offload: bool) -> bool:
+    """Whether a decoder replays its captured UNet pass: on a CUDA device,
+    with the weights resident (``offload`` False: offloaded weights are
+    copied to new addresses each call), and with no profiler recording (a
+    replay records no spans, and a traced call is read by them)."""
+    return device.type == "cuda" and not offload and not _profiling()
+
+
+def _static_like(x: torch.Tensor) -> torch.Tensor:
+    """An empty buffer of x's shape, strides and dtype: a broadcast (stride 0)
+    dim stays one, as the expanded empty-prompt context and timesteps are,
+    so that the captured pass sees the eager pass's layouts."""
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                               device=x.device)
+
+
+def _fill(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy ``src`` into ``dst`` of the same strides, a broadcast dim once."""
+    for d, stride in enumerate(dst.stride()):
+        if stride == 0:
+            dst, src = dst.narrow(d, 0, 1), src.narrow(d, 0, 1)
+    dst.copy_(src)
+
+
+class CapturedUNetPass:
+    """One UNet pass captured as a CUDA graph at one set of input shapes,
+    strides and dtypes: static latents, timesteps, context and class labels,
+    and the static prediction that a replay writes.
+
+    Captured as ``torch.cuda.graphs`` documents it: one eager pass on a side
+    stream first (it loads the kernels' libraries, lets cuDNN choose its
+    algorithms and fills the allocator), then the capture on that stream
+    into the graph's own memory pool. The capture errs only on this
+    thread's unsafe calls, so an LLM engine's thread may run beside it. It
+    reads the weights in place: ``params`` must stay where they are."""
+
+    def __init__(self, params, cfg: UNetConfig, *inputs: torch.Tensor):
+        self.inputs = [_static_like(x) for x in inputs]
+        for dst, src in zip(self.inputs, inputs):
+            _fill(dst, src)
+        caller = torch.cuda.current_stream(inputs[0].device)
+        side = torch.cuda.Stream(inputs[0].device)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            unet_apply(params, *self.inputs, cfg)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.pred = unet_apply(params, *self.inputs, cfg)
+        caller.wait_stream(side)
+
+
+class UNetGraphs:
+    """The captured UNet passes of one decoder, keyed by their inputs'
+    shapes, strides and dtypes: the CFG batch 2B, the latents, the context's
+    length. Each is captured on the first call that meets its key."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, CapturedUNetPass] = {}
+
+    def bind(self) -> Callable:
+        """A pass function for one denoise loop (``generate_latents``'s
+        ``unet_pass``). Its first call finds or captures the graph of its
+        inputs and copies the context and class labels in; every call copies
+        the latents and timesteps in and replays. It returns the static
+        prediction, which the next replay overwrites: the loop reads it
+        before, in stream order."""
+        graph = None
+
+        def unet_pass(params, lat2, t, ctx, class_labels, cfg):
+            nonlocal graph
+            if graph is None:
+                inputs = (lat2, t, ctx, class_labels)
+                key = tuple((x.shape, x.stride(), x.dtype) for x in inputs)
+                graph = self.graphs.get(key)
+                if graph is None:
+                    graph = self.graphs[key] = CapturedUNetPass(params, cfg,
+                                                                *inputs)
+                _fill(graph.inputs[2], ctx)
+                _fill(graph.inputs[3], class_labels)
+            _fill(graph.inputs[0], lat2)
+            _fill(graph.inputs[1], t)
+            graph.graph.replay()
+            return graph.pred
+
+        return unet_pass
+
+
 class UnCLIPDecoder:
     """The serving-side de-tokenizer (the diffusion half of ImageTokenizer).
 
@@ -142,7 +244,9 @@ class UnCLIPDecoder:
     from ``torch.Generator(device).manual_seed(seed)``, and tests that hold
     the two packages together set ``latents`` explicitly. ``offload=True``
     keeps the weights in pinned host memory between calls
-    (serving/offload.py).
+    (serving/offload.py). Where ``replays_unet`` holds, ``generate`` replays
+    the UNet pass from ``unet_graphs``, one call at a time, as the calls
+    share the graphs' static buffers.
     """
 
     def __init__(self, params, cfg: UnCLIPConfig = SD21_UNCLIP,
@@ -153,6 +257,9 @@ class UnCLIPDecoder:
         self.device = resolve_device(device)
         self._params = wrap_params(params, offload, self.device)
         self.params = self._params.params
+        self.offload = offload
+        self.unet_graphs = UNetGraphs()
+        self._replay_lock = threading.Lock()
         self.cfg = cfg
         self.num_inference_steps = num_inference_steps
         self.guidance_scale = guidance_scale
@@ -167,9 +274,13 @@ class UnCLIPDecoder:
         [0, 1], decoded from the same latents for every image."""
         emb = torch.as_tensor(image_embeds, device=self.device)
         lat = self.latents.expand(emb.shape[0], *self.latents.shape[1:])
+        replay = replays_unet(self.device, self.offload)
         with span("unclip.generate", lat, images=emb.shape[0],
                   steps=self.num_inference_steps), self._params as p:
+            with self._replay_lock if replay else contextlib.nullcontext():
+                lat = generate_latents(
+                    p, emb, lat, self.cfg, self.num_inference_steps,
+                    self.guidance_scale, unet_pass=(
+                        self.unet_graphs.bind() if replay else unet_apply))
             # the host copy syncs before release
-            lat = generate_latents(p, emb, lat, self.cfg,
-                                   self.num_inference_steps, self.guidance_scale)
             return decode_to_images(p, lat, self.cfg).float().cpu().numpy()

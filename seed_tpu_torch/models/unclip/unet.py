@@ -28,6 +28,12 @@ Spans (``utils/metrics_logging.span``, recorded only under a profiler): one
 ``unet`` a pass; inside it ``resnet``, ``group_norm`` (the VAE's too),
 ``self_attention`` (attn1 with its projections), ``cross_attention``
 (attn2) and ``ff`` (the GEGLU MLP).
+
+``unet_apply`` enqueues its ~2,560 launches one by one. A resident decoder
+on the card runs it so only to capture a CUDA graph, then replays that
+graph each step (``pipeline.CapturedUNetPass``); it runs eagerly on the
+CPU, with offloaded weights and under a profiler, where the spans above
+are what a traced call is read by.
 """
 from __future__ import annotations
 

@@ -6,6 +6,7 @@ not installed, run them without the suite's conftest (which imports it):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import numpy as np
 import pytest
 import torch
 
@@ -766,6 +767,67 @@ def test_unclip_decoder_generates_pixels(gen):
     side = cfg.latent_size * cfg.vae.upscale
     assert img.shape == (2, side, side, 3) and img.min() >= 0 and img.max() <= 1
     assert (img == dec.generate(emb)).all()
+
+
+@pytest.fixture(scope="module")
+def unclip16():
+    """Seeded SD2.1 unCLIP weights on the card in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return TU.init_unclip(g, TU.SD21_UNCLIP, torch.bfloat16)
+
+
+def _eager_pixels(dec, emb):
+    """The decoder's weights and latents through the loop with the default
+    ``unet_apply``: its pass enqueued eagerly."""
+    with torch.inference_mode():
+        lat = dec.latents.expand(emb.shape[0], *dec.latents.shape[1:])
+        x = TU.generate_latents(dec.params, emb, lat, dec.cfg,
+                                dec.num_inference_steps, dec.guidance_scale)
+        return TU.decode_to_images(dec.params, x, dec.cfg).float().cpu().numpy()
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_unclip_graphed_decode_bit_equal_to_eager(gen, unclip16, B):
+    """A resident bf16 decoder at SD2.1 width (3 DDIM steps) captures one
+    graph of the UNet pass at its CFG batch 2B on its first call: the flash
+    forward runs in the warm-up and the capture passes only, the replays
+    launch it from the graph. Its pixels equal the eager pass's bit for bit;
+    a second call with other embeddings refreshes the static inputs and
+    gives other pixels, again equal to the eager pass's."""
+    dec = TU.UnCLIPDecoder(unclip16, TU.SD21_UNCLIP, num_inference_steps=3)
+    embs = [torch.randn((B, 1024), generator=gen, device="cuda")
+            for _ in range(2)]
+    before = TF.flash_fwd.launches
+    got = [dec.generate(embs[0])]
+    assert TF.flash_fwd.launches == before + 2 * 15
+    got.append(dec.generate(embs[1]))
+    assert TF.flash_fwd.launches == before + 2 * 15
+    assert len(dec.unet_graphs.graphs) == 1
+    assert got[0].shape == (B, 768, 768, 3)
+    for emb, img in zip(embs, got):
+        np.testing.assert_array_equal(img, _eager_pixels(dec, emb))
+    assert not np.array_equal(got[0], got[1])
+
+
+def test_unclip_decoder_replays_only_resident_and_unprofiled(gen):
+    """Offloaded weights, or a profiler recording, run the pass eagerly and
+    capture nothing; the same resident decoder then captures and replays,
+    with the traced call's pixels."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = TU.TINY_UNCLIP
+    params = TU.init_unclip(gen, cfg, torch.bfloat16)
+    emb = torch.randn((1, cfg.image_embed_dim), generator=gen, device="cuda")
+    off = TU.UnCLIPDecoder(params, cfg, num_inference_steps=2, offload=True)
+    off.generate(emb)
+    assert off.unet_graphs.graphs == {}
+    dec = TU.UnCLIPDecoder(params, cfg, num_inference_steps=2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        traced = dec.generate(emb)
+    assert dec.unet_graphs.graphs == {}
+    np.testing.assert_array_equal(dec.generate(emb), traced)
+    assert len(dec.unet_graphs.graphs) == 1
 
 
 # ------------------------ tokenizer training (stages 1 and 2) ----------------

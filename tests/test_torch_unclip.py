@@ -11,6 +11,7 @@ norm, 1e-4 for one UNet, VAE or CLIP pass (seed_tpu's single-pass bound,
 tests/test_unclip.py:118), rtol 2e-3 / atol 3e-4 for the denoise loop and
 the pixels decoded from it (tests/test_unclip.py:225,259).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -26,6 +27,7 @@ from seed_tpu.models.unclip import unet as JU
 from seed_tpu_torch import bridge
 from seed_tpu_torch.models import seed_tokenizer as TST
 from seed_tpu_torch.models import unclip as T
+from seed_tpu_torch.models.unclip import pipeline as TP
 from seed_tpu_torch.models.unclip import schedulers as TS
 from seed_tpu_torch.models.unclip import unet as TU
 from seed_tpu_torch.utils.tree import tree_map
@@ -381,6 +383,56 @@ def test_decoder_default_bf16_deterministic(tiny):
     assert 0.0 <= img.min() and img.max() <= 1.0
     np.testing.assert_array_equal(img, a.generate(emb))
     np.testing.assert_array_equal(img, b.generate(emb))
+
+
+# --------------------- the UNet pass: graph or eager ------------------------
+
+def test_generate_latents_calls_an_explicit_pass_once_a_step(tiny, loop_inputs):
+    """An explicit ``unet_pass`` runs each step's CFG batch, with the
+    default's result bit for bit."""
+    _, tp = tiny
+    emb, lat = loop_inputs
+    shapes = []
+
+    def counted(params, lat2, *args):
+        shapes.append(tuple(lat2.shape))
+        return TU.unet_apply(params, lat2, *args)
+
+    want = T.generate_latents(tp, t(emb), t(lat), T.TINY_UNCLIP, 3, 7.5)
+    got = T.generate_latents(tp, t(emb), t(lat), T.TINY_UNCLIP, 3, 7.5,
+                             unet_pass=counted)
+    assert shapes == [(4, 8, 8, 4)] * 3
+    assert torch.equal(got, want)
+
+
+def test_decoder_on_the_cpu_captures_nothing(tiny, monkeypatch):
+    """On the CPU the decoder hands the loop ``unet_apply`` itself and
+    captures no graph."""
+    _, tp = tiny
+    dec = T.UnCLIPDecoder(tp, T.TINY_UNCLIP, num_inference_steps=2,
+                          device="cpu")
+    loop, passes = TP.generate_latents, []
+
+    def spy(*args, unet_pass, **kwargs):
+        passes.append(unet_pass)
+        return loop(*args, unet_pass=unet_pass, **kwargs)
+
+    monkeypatch.setattr(TP, "generate_latents", spy)
+    img = dec.generate(np.zeros((1, 5), np.float32))
+    assert img.shape == (1, 16, 16, 3)
+    assert passes == [TU.unet_apply] and dec.unet_graphs.graphs == {}
+
+
+@pytest.mark.parametrize("device,offload,profiled,want", [
+    ("cuda", False, False, True), ("cpu", False, False, False),
+    ("cuda", True, False, False), ("cuda", False, True, False)])
+def test_replays_unet_only_resident_on_the_card_unprofiled(
+        device, offload, profiled, want):
+    """Graph or eager follows from the device, the weights' residency and
+    whether a profiler records, and from nothing else."""
+    with (torch.autograd.profiler.profile() if profiled
+          else contextlib.nullcontext()):
+        assert TP.replays_unet(torch.device(device), offload) is want
 
 
 # -------------------------- tokenizer round trip ----------------------------
