@@ -4,10 +4,10 @@
 
 Phases, each printing lines of its own:
 
-1. build   — compile the four CUDA sources of seed_tpu_torch/csrc/ (one nvcc
+1. build   — compile the five CUDA sources of seed_tpu_torch/csrc/ (one nvcc
              per source, all at once) into build/seed_tpu_torch/; a spill in
-             any tensor-core kernel or in short_mha's fp32 kernel fails the
-             run.
+             any tensor-core kernel, in short_mha's fp32 kernel or in the
+             GroupNorm kernels fails the run.
 2. kernels — hold each of the six kernels (short_mha, int8_matmul, the tiled
              flash forward, dq and dk/dv, and w8a8_matmul) against its plain
              PyTorch version on the card at the main paths' shapes, and time
@@ -29,7 +29,12 @@ Phases, each printing lines of its own:
              library calls, and their launches after this phase are
              counted; one fp32 autograd step at SEED-LLaMA-8B's width cut to
              2 layers through train_llm.llm_loss launches all three against
-             plain mha.
+             plain mha. The GroupNorm kernel (the port's own, no TPU
+             counterpart) at the UNet's largest input (CFG batch 2 at 96x96
+             x 960) and the VAE's 768x768 x 256, with and without SiLU,
+             against the plain fp32 chain and bit for bit over two calls,
+             timed with SiLU beside its byte bound, the plain chain with its
+             SiLU pass (the path before it) and F.group_norm + F.silu.
 3. reference — the full-width fp32 encode through the short_mha kernel
              against the same encode through the plain mha path.
 4. encode  — full SEED tokenizer (EVA-ViT-g, 39 blocks), seeded bf16 weights:
@@ -59,12 +64,13 @@ Phases, each printing lines of its own:
              run after phase 6 on its objects (phase 6's /generate service
              already has it attached): one UNet pass in bf16 against fp32
              (the bf16 pass launches the flash forward 15 times, the
-             self-attention of levels 0-2); encode -> 8B int8 generate
-             (force_image) -> a valid image block appended ->
-             SeedLlamaInterface.split_output -> 768x768 pixels through the
-             offloaded bf16 decoder (20 DDIM steps, guidance 10, 300 flash
-             forward launches) -> PNG; the same decode in fp32 against
-             bf16.
+             self-attention of levels 0-2, and the GroupNorm kernel 61
+             times); encode -> 8B int8 generate (force_image) -> a valid
+             image block appended -> SeedLlamaInterface.split_output ->
+             768x768 pixels through the offloaded bf16 decoder (20 DDIM
+             steps, guidance 10, 300 flash forward launches, 1,250
+             GroupNorm launches: 61 a UNet pass, 30 in the VAE) -> PNG; the
+             same decode in fp32 against bf16.
 9. train_llm — python3 -m seed_tpu_torch.train.train_llm on pkl tar shards
              written under build/: SEED-LLaMA-8B + LoRA through the flash
              kernels (--batch-size 8 --grad-accum 2 --max-length 1024), 4
@@ -118,17 +124,23 @@ Phases, each printing lines of its own:
              against merge_lora_weights in memory; acceptance --synthetic
              --device cuda (exit 0); check_full_geometry for the 8B and 14B,
              LoRA and --full, at --tp 2 --devices=8. short_mha launches 39
-             times for each of their 9 bf16 encodes, the flash forward 300
-             times for seed_tokenizer_inference's bf16 decode, no other
-             kernel runs.
+             times for each of their 9 bf16 encodes; seed_tokenizer_inference's
+             bf16 decode runs its UNet pass eagerly twice (a CUDA graph's
+             warm-up and capture; the replays are not counted) and its VAE
+             once: the flash forward 30 times, the GroupNorm kernel 152
+             times; acceptance's TINY decoder (bf16 latents) the GroupNorm
+             kernel 78 times (2 x 21 in its UNet, 2 x 18 in its VAE); no
+             other kernel runs.
 
 Phases 4-5 (serving), phase 6 (the throughput server), phase 7 (training),
 phase 9 (train_llm), phase 10 (train_tokenizer), phases 11a-11b (eval) and
 phase 12a (parallel) are the main paths: the launch counters of a path's kernels are set to 0
 just before it and read just after. Phase 8 launches only the flash
-forward (the bf16 UNet's self-attention) and phase 13 only short_mha and
-the flash forward (its bf16 encodes and decode; the lines show the
-counts); neither is counted on a path; nor are 11c
+forward and the GroupNorm kernel (the bf16 UNet and VAE; the GroupNorm
+kernel's launches there are its path's count) and phase 13 only short_mha,
+the flash forward and the GroupNorm kernel (its bf16 encodes and decode;
+the lines show the counts); the rest of phase 8 and phase 13 is counted on
+no path; nor are 11c
 and 11d (11c's frozen EVA-ViT-g launches short_mha fp32, uncounted).
 Every failure raises, so the script exits non-zero and prints no result line.
 The last line is the device record; the line before it lists the kernels, the
@@ -242,15 +254,18 @@ PTXAS_KERNELS = {"short_mha": ("short_mha_wg_kernel",),
                  "flash_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",),
                  "flash_bwd_dkv_f32": ("flash_bwd_dkv_f32_kernel",),
                  "int8_matmul": ("int8_mm_bf16", "int8_mm_reduce", "int8_mm_f32"),
-                 "w8a8_matmul": ("w8a8_mm",)}
+                 "w8a8_matmul": ("w8a8_mm",),
+                 "group_norm": ("gn_stats_kernel", "gn_apply_kernel"),
+                 "group_norm_resident": ("gn_resident_kernel",)}
 
 
 def _instance(fn: str, mangled: str):
     """The instance key of kernel function ``fn`` in a mangled entry name:
     its integer template arguments joined by "/" (Dp for the flash kernels,
     "Dp/mode" for short_mha, "warps_m/warps_n/m16 tiles/slabs/out type" for
-    w8a8_mm), or the function's name when it is no template; None when the
-    entry is another function."""
+    w8a8_mm, U for gn_stats_kernel, "U/silu" for gn_apply_kernel and
+    "bytes/silu" for gn_resident_kernel), or the function's name when it is
+    no template; None when the entry is another function."""
     m = re.search(fn + r"(?:I((?:Li\d+E)+)(13__nv_bfloat16|f)?E)?", mangled)
     if m is None:
         return None
@@ -1017,6 +1032,77 @@ def phase_w8a8_kernel(name: str, flush: torch.Tensor, usage: dict) -> dict:
     return {"w8a8_matmul": record}
 
 
+# ------------------------------------------ phase 2, the GroupNorm kernel
+
+# (B, side, C): the UNet's largest GroupNorm input (CFG batch 2 at 96x96,
+# the up path's 640 + 320 channels: the streaming design), the VAE's
+# 768x768 x 256 (streaming) and the UNet's 24x24 x 1280, its commonest
+# resident shape (11 of a pass's 61 norms)
+GN_SHAPES = ((2, 96, 960), (1, 768, 256), (2, 24, 1280))
+GN_GROUPS = 32
+
+
+def phase_group_norm_kernel(name: str, flush: torch.Tensor) -> dict:
+    """The GroupNorm kernel against the plain fp32 chain (fp32 input, scale
+    and bias: its function unrounded), with and without SiLU: within one
+    bf16 ulp of |y| plus 1e-5 of max |y| (the order of the fp32 sums), and
+    bit for bit over two calls. Timed with SiLU (45 of a UNet pass's 61
+    norms) beside the byte bound (x read once, y written once, bf16), the
+    plain chain in bf16 with its SiLU pass (what the model ran before the
+    kernel) and the library's F.group_norm on the NCHW view plus F.silu.
+    The kernels line's row is the UNet's largest shape, the VAE's and the
+    resident design's beside it."""
+    import torch.nn.functional as F
+    from seed_tpu_torch.ops import group_norm as GN
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows, worst = {}, 0.0
+    for B, side, C in GN_SHAPES:
+        m = 2 * torch.randn(C, generator=gen, device="cuda")
+        sd = 0.5 + 1.5 * torch.rand(C, generator=gen, device="cuda")
+        x = (torch.randn(B, side, side, C, generator=gen, device="cuda") * sd
+             + m).to(torch.bfloat16)
+        scale = torch.randn(C, generator=gen, device="cuda").to(torch.bfloat16)
+        bias = torch.randn(C, generator=gen, device="cuda").to(torch.bfloat16)
+        label = dict(B=B, H=side, W=side, C=C, groups=GN_GROUPS)
+        for silu in (False, True):
+            run = lambda: GN.group_norm_kernel(x, scale, bias, GN_GROUPS,
+                                               1e-5, silu)
+            got = run()
+            want = GN.group_norm_plain(x.float(), scale.float(), bias.float(),
+                                       GN_GROUPS, 1e-5, silu)
+            err = (got.float() - want).abs()
+            over = (err - 2.0 ** -7 * want.abs()
+                    - 1e-5 * want.abs().max()).max().item()
+            if not over <= 0:
+                raise AssertionError(f"group_norm {label} silu={silu}: "
+                                     f"{over} past one bf16 ulp")
+            _repeat_bits("group_norm", dict(label, silu=silu), run, got)
+            worst = max(worst, err.max().item())
+            del got, want, err
+        ms = time_ms(lambda: GN.group_norm_kernel(x, scale, bias, GN_GROUPS,
+                                                  1e-5, True), flush=flush)
+        ms_norm = time_ms(lambda: GN.group_norm_kernel(x, scale, bias,
+                                                       GN_GROUPS), flush=flush)
+        plain = time_ms(lambda: F.silu(GN.group_norm_plain(
+            x, scale, bias, GN_GROUPS)), 3, flush)
+        lib = time_ms(lambda: F.silu(F.group_norm(
+            x.permute(0, 3, 1, 2), GN_GROUPS, scale, bias, 1e-5)), flush=flush)
+        bms, by = bound_ms(2 * x.numel() * x.element_size(), 0, BF16_FLOPS)
+        rows[(B, side, C)] = dict(
+            shape=f"B={B} {side}x{side} C={C}, bf16, SiLU", ms=ms,
+            ms_without_silu=ms_norm, plain_ms=plain, library_ms=lib,
+            library="F.group_norm (NCHW view) + F.silu", bound_ms=bms,
+            bound_by=by, bound_share=bms / ms,
+            plan=list(GN.group_norm_plan(B, side * side, C, GN_GROUPS)))
+        emit("kernels", kernel="group_norm", **label, max_abs_err=worst,
+             card=name, **rows[(B, side, C)])
+        del x
+    record = dict(rows[GN_SHAPES[0]], max_abs_err=worst,
+                  vae=rows[GN_SHAPES[1]], resident=rows[GN_SHAPES[2]])
+    return {"group_norm": record}
+
+
 # --------------------------------------------------------------- phase 3
 
 def _cast(tree, dtype):
@@ -1645,13 +1731,29 @@ UNET_FLASH_CALLS = 15
 DDIM_STEPS = 20
 
 
+def unet_gn_calls(u) -> int:
+    """GroupNorm kernel launches of one bf16 UNet pass: two a resnet, one a
+    spatial transformer, the output's (61 at SD2.1's UNet)."""
+    resnets = len(u.block_channels) * (2 * u.layers_per_block + 1) + 2
+    blocks = sum(u.attn_levels) * (2 * u.layers_per_block + 1) + 1
+    return 2 * resnets + 1 + blocks
+
+
+def vae_gn_calls(v) -> int:
+    """GroupNorm kernel launches of one bf16 VAE decode: two a resnet, the
+    mid attention's, the output's (30 at SD2.1's VAE)."""
+    return 2 * (2 + len(v.channel_mults) * (v.layers_per_block + 1)) + 2
+
+
 def _launch_counts() -> dict:
-    """The launch counters of the six kernels."""
+    """The launch counters of the six kernel rows and the GroupNorm
+    kernel."""
     from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops.group_norm import group_norm_kernel
     from seed_tpu_torch.ops.int8_matmul import int8_matmul, w8a8_matmul
     return {fn.__name__: fn.launches for fn in (
         TF.short_mha, int8_matmul, TF.flash_fwd, TF.flash_bwd_dq,
-        TF.flash_bwd_dkv, w8a8_matmul)}
+        TF.flash_bwd_dkv, w8a8_matmul, group_norm_kernel)}
 
 
 def _launched_since(before: dict) -> dict:
@@ -1723,7 +1825,8 @@ def phase_unet_pass(name: str, p32, p16) -> None:
         raise AssertionError(f"UNet pass: bf16 differs from fp32 by {rel} of "
                              f"the output's scale (bound {UNET_BF16_TOL})")
     want = {"fp32": dict.fromkeys(launched["fp32"], 0)}
-    want["bf16"] = dict(want["fp32"], flash_fwd=UNET_FLASH_CALLS)
+    want["bf16"] = dict(want["fp32"], flash_fwd=UNET_FLASH_CALLS,
+                        group_norm_kernel=unet_gn_calls(cfg.unet))
     if launched != want:
         raise AssertionError(f"UNet pass launched {launched}, not {want}")
     emit("detokenize", what="one SD21 UNet pass, CFG batch 2 at 96x96x4, "
@@ -1808,6 +1911,8 @@ def phase_detokenize(name: str, params, tok_params, codes: torch.Tensor,
         raise AssertionError(f"detokenize: PNG {png.format} {png.size} {png.mode}")
     want = dict.fromkeys(launched, 0)
     want["flash_fwd"] = DDIM_STEPS * UNET_FLASH_CALLS
+    want["group_norm_kernel"] = (DDIM_STEPS * unet_gn_calls(cfg.unet)
+                                 + vae_gn_calls(cfg.vae))
     if launched != want:
         raise AssertionError(f"detokenize launched {launched}, not {want}")
 
@@ -3253,8 +3358,9 @@ def gc_collect() -> None:
 
 def phase_scripts(name: str, scratch: Path) -> None:
     """The five command lines of seed_tpu_torch.scripts in process through
-    their main(); of the six kernels only short_mha is on their path, in
-    their bf16 encodes."""
+    their main(); of the kernels only short_mha (their bf16 encodes), the
+    flash forward and the GroupNorm kernel (seed_tokenizer_inference's
+    decode) are on their path."""
     before = _launch_counts()
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         tmp = Path(tmp)
@@ -3273,13 +3379,20 @@ def phase_scripts(name: str, scratch: Path) -> None:
     # the bf16 encodes run the ViT's attention through short_mha, one launch
     # a block; acceptance encodes in fp32 on mha; seed_tokenizer_inference's
     # one bf16 decode runs the UNet's self-attention through the flash
-    # forward: its resident decoder runs the pass eagerly twice (the graph's
-    # warm-up and capture), and the 20 replays launch from the graph, which
-    # no counter sees
+    # forward and its GroupNorms through the GroupNorm kernel: its resident
+    # decoder runs the pass eagerly twice (the graph's warm-up and capture),
+    # and the 20 replays launch from the graph, which no counter sees; the
+    # VAE runs once. acceptance's TINY_UNCLIP decoder (fp32 weights, bf16
+    # latents: every conv gives bf16) decodes one image twice: its GroupNorms
+    # take the kernel in the pass's warm-up and capture and in both VAEs
     from seed_tpu_torch.models.seed_tokenizer import SEED_TOKENIZER
+    from seed_tpu_torch.models.unclip import SD21_UNCLIP, TINY_UNCLIP
     want = dict.fromkeys(launched, 0)
     want["short_mha"] = SEED_TOKENIZER.vit.depth * encodes
     want["flash_fwd"] = 2 * UNET_FLASH_CALLS
+    want["group_norm_kernel"] = sum(
+        2 * unet_gn_calls(c.unet) + n_vae * vae_gn_calls(c.vae)
+        for c, n_vae in ((SD21_UNCLIP, 1), (TINY_UNCLIP, 2)))
     if launched != want:
         raise AssertionError(f"the scripts launched {launched}, not {want} "
                              f"({encodes} bf16 encodes)")
@@ -3289,14 +3402,17 @@ def redesigned_smem_bytes() -> dict:
     """Dynamic shared memory of one block of the redesigned kernels at the
     main paths' shapes (head dims 88 and 128, the flash kernels in both
     types; short_mha's fp32 kernel at the tokenizer training's S = 257; the
-    bf16 int8 matmul; the W8A8 encode's M = 2056), as their launchers ask."""
+    bf16 int8 matmul; the W8A8 encode's M = 2056; the GroupNorm statistics
+    kernel at 960 channels), as their launchers ask."""
     from seed_tpu_torch.ops import flash_attention as TF
+    from seed_tpu_torch.ops import group_norm as GN
     from seed_tpu_torch.ops import int8_matmul as TI
     from seed_tpu_torch.ops import kernels
     short = kernels.load("short_mha", TF._SIGNATURES)
     flash = TF._flash_lib(torch.bfloat16, 128)
     int8 = kernels.load("int8_matmul", TI._SIGNATURES)
     w8a8 = kernels.load("w8a8_matmul", TI._W8A8_SIGNATURES)
+    gn = kernels.load("group_norm", GN._SIGNATURES)
     return {"short_mha": short.seed_short_mha_smem_bytes(257, 88, 1),
             "short_mha_f32": short.seed_short_mha_f32_plan(257, 257, 88, 1),
             **{k: flash.seed_flash_smem_bytes(i, 1, 128) for i, k in
@@ -3304,7 +3420,8 @@ def redesigned_smem_bytes() -> dict:
             **{k + "_f32": flash.seed_flash_smem_bytes(i, 0, 128) for i, k in
                enumerate(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))},
             "int8_matmul": int8.seed_int8_matmul_smem_bytes(1),
-            "w8a8_matmul": w8a8.seed_w8a8_smem_bytes(2056)}
+            "w8a8_matmul": w8a8.seed_w8a8_smem_bytes(2056),
+            "group_norm": gn.seed_group_norm_smem_bytes(GN_SHAPES[0][2])}
 
 
 def main() -> None:
@@ -3327,6 +3444,7 @@ def main() -> None:
     record.update(phase_int8_kernel(name, flush, usage))
     record.update(phase_flash_kernels(name, flush))
     record.update(phase_w8a8_kernel(name, flush, usage))
+    record.update(phase_group_norm_kernel(name, flush))
     del flush
     from seed_tpu_torch.ops import flash_attention as TF
     # the fp32 instances of rows 2-5, on no path: launches from here on
@@ -3377,9 +3495,14 @@ def main() -> None:
     for kernel, n in read_and_check("server", server_kernels).items():
         launches[kernel] = launches.get(kernel, 0) + n
 
-    # the de-tokenizer: the flash forward in its bf16 UNet, no path's count
+    # the de-tokenizer: the flash forward in its bf16 UNet, no path's count;
+    # the GroupNorm kernel's path (its bf16 UNet and VAE)
+    from seed_tpu_torch.ops.group_norm import group_norm_kernel
+    group_norm_kernel.launches = 0
     phase_unet_pass(name, unclip32, unclip16)
     phase_detokenize(name, llama_int8, tok_params, codes, unclip32, decoder)
+    launches["group_norm"] = read_and_check(
+        "detokenize", (group_norm_kernel,))["group_norm_kernel"]
     del unclip32, unclip16
     torch.cuda.empty_cache()
 
@@ -3442,7 +3565,8 @@ def main() -> None:
                "flash_bwd_dq": (flash_cu, "seed_tpu/ops/flash_attention.py:335"),
                "flash_bwd_dkv": (flash_cu, "seed_tpu/ops/flash_attention.py:378"),
                "w8a8_matmul": ("seed_tpu_torch/csrc/w8a8_matmul.cu",
-                               "seed_tpu/ops/int8_matmul.py:93")}
+                               "seed_tpu/ops/int8_matmul.py:93"),
+               "group_norm": ("seed_tpu_torch/csrc/group_norm.cu", None)}
     kernels = [dict(name=k, route="cuda", source=source, replaces=replaces,
                     launches=launches[k],
                     max_abs_err=record[k]["max_abs_err"], ms=record[k]["ms"],
@@ -3458,7 +3582,7 @@ def main() -> None:
     # bf16 out), at every other instance, and its shared memory
     main_dp = {"short_mha": "96/0", "flash_fwd": "128", "flash_bwd_dq": "128",
                "flash_bwd_dkv": "128", "int8_matmul": "int8_mm_bf16",
-               "w8a8_matmul": "2/2/4/4/bf16"}
+               "w8a8_matmul": "2/2/4/4/bf16", "group_norm": "4/1"}
     smem = redesigned_smem_bytes()
     for entry in kernels:
         k = entry["name"]
@@ -3491,6 +3615,17 @@ def main() -> None:
                                    launches=int8_matmul.launches_f32)
         if k == "flash_fwd":     # the UNet's shapes, bf16
             entry["unet"] = record[k]["unet"]
+        if k == "group_norm":    # the port's own kernel: no TPU counterpart
+            for key in ("shape", "ms_without_silu", "library", "bound_share",
+                        "plan", "vae", "resident"):
+                entry[key] = record[k][key]
+            res = usage.get("group_norm_resident", {})
+            entry["resident_kernel"] = dict(
+                name="gn_resident_kernel",
+                registers_by_instance={key: u.get("registers")
+                                       for key, u in sorted(res.items())},
+                spill_bytes=(sum(spill_bytes(u) for u in res.values())
+                             if res else None))
         if k.startswith("flash_"):     # the fp32 kernels, on no path
             entry["fp32"] = dict(record[k]["fp32"],
                                  launches=getattr(TF, k).launches_f32)

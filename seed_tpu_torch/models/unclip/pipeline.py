@@ -16,7 +16,7 @@ indexes them there: the 20 steps enqueue their work without a host sync.
 
 ``UnCLIPDecoder`` replays the UNet pass as a CUDA graph, one captured on the
 first call at each input shape (``CapturedUNetPass``), where eager dispatch
-of its ~2,560 launches would hold the card back; guidance and the DDIM step
+of its ~1,710 launches would hold the card back; guidance and the DDIM step
 stay eager calls. It replays only with its weights resident on the card
 (offloaded weights change address each call) and no profiler recording; on
 the CPU, offloaded or under a profiler the pass runs eagerly, so that a

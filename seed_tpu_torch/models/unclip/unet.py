@@ -17,19 +17,23 @@ bridge and the converters make them so) so that cuDNN never reformats a
 weight per call. Padding is symmetric by ``kh // 2`` at every stride, as
 seed_tpu (and torch) pad.
 
-GroupNorm keeps seed_tpu's op order: fp32 statistics, two-pass variance,
-fp32 affine, one cast back. Attention goes through
+GroupNorm keeps seed_tpu's op order: fp32 statistics, the variance as the
+mean of squared deviations, fp32 affine, one cast back. In bf16 on the card
+(``ops/group_norm.group_norm_route``) it runs the hand-written GroupNorm
+kernel, which also applies the SiLU that follows 45 of a pass's 61 norms
+(``silu=True``) before its one rounding; fp32 and the CPU run the plain
+chain and then ``F.silu``. Attention goes through
 ``flash_attention.unmasked_attention``: in bf16 on the card the
 self-attention of levels 0-2 (576 tokens and more) runs the tiled flash
 forward kernel; the mid block's 144 tokens, every cross-attention (77
 keys), fp32 and the CPU run the plain ``mha``.
 
 Spans (``utils/metrics_logging.span``, recorded only under a profiler): one
-``unet`` a pass; inside it ``resnet``, ``group_norm`` (the VAE's too),
-``self_attention`` (attn1 with its projections), ``cross_attention``
-(attn2) and ``ff`` (the GEGLU MLP).
+``unet`` a pass; inside it ``resnet``, ``group_norm`` (with its fused SiLU;
+the VAE's too), ``self_attention`` (attn1 with its projections),
+``cross_attention`` (attn2) and ``ff`` (the GEGLU MLP).
 
-``unet_apply`` enqueues its ~2,560 launches one by one. A resident decoder
+``unet_apply`` enqueues its ~1,710 launches one by one. A resident decoder
 on the card runs it so only to capture a CUDA graph, then replays that
 graph each step (``pipeline.CapturedUNetPass``); it runs eagerly on the
 CPU, with offloaded weights and under a profiler, where the spans above
@@ -45,6 +49,8 @@ import torch.nn.functional as F
 
 from ... import resolve_device
 from ...ops.flash_attention import unmasked_attention
+from ...ops.group_norm import (group_norm_kernel, group_norm_plain,
+                               group_norm_route)
 from ...utils.metrics_logging import span
 from .. import layers as L
 from .schedulers import timestep_embedding
@@ -88,14 +94,19 @@ def conv2d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def group_norm(p, x: torch.Tensor, groups: int, eps: float = 1e-5) -> torch.Tensor:
+def group_norm(p, x: torch.Tensor, groups: int, eps: float = 1e-5,
+               silu: bool = False) -> torch.Tensor:
+    """GroupNorm of x [B, H, W, C] with p["scale"], p["bias"], followed by
+    SiLU where ``silu``. Where ``group_norm_route`` says so (bf16 on the
+    card) one hand-written kernel does both, SiLU on the fp32 value before
+    the one rounding; every other call takes the plain chain
+    (``group_norm_plain``) and then ``F.silu``, bit for bit as before."""
     with span("group_norm", x):
-        B, H, W, C = x.shape
-        xf = x.float().reshape(B, H, W, groups, C // groups)
-        mean = xf.mean(dim=(1, 2, 4), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2, 4), keepdim=True)
-        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
-        return (xf * p["scale"].float() + p["bias"].float()).to(x.dtype)
+        if group_norm_route(x, groups):
+            return group_norm_kernel(x, p["scale"], p["bias"], groups, eps,
+                                     silu)
+        y = group_norm_plain(x, p["scale"], p["bias"], groups, eps)
+        return F.silu(y) if silu else y
 
 
 def upsample_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -136,11 +147,11 @@ def init_resnet(gen, cin, cout, temb_dim, dtype=torch.float32, device="cuda"):
 
 def resnet_apply(p, x, temb, groups):
     with span("resnet", x):
-        h = F.silu(group_norm(p["norm1"], x, groups))
+        h = group_norm(p["norm1"], x, groups, silu=True)
         h = conv2d(p["conv1"], h)
         t = L.linear(p["time_emb_proj"], F.silu(temb))
         h = h + t[:, None, None, :].to(h.dtype)
-        h = F.silu(group_norm(p["norm2"], h, groups))
+        h = group_norm(p["norm2"], h, groups, silu=True)
         h = conv2d(p["conv2"], h)
         skip = conv2d(p["conv_shortcut"], x) if "conv_shortcut" in p else x
         return skip + h
@@ -339,5 +350,5 @@ def unet_apply(params, latents: torch.Tensor, timesteps: torch.Tensor,
             if "upsample" in block:
                 x = conv2d(block["upsample"], upsample_nearest(x))
 
-        x = F.silu(group_norm(params["conv_norm_out"], x, G))
+        x = group_norm(params["conv_norm_out"], x, G, silu=True)
         return conv2d(params["conv_out"], x)

@@ -5,8 +5,10 @@ latent 4ch -> post_quant_conv 1x1 -> conv_in -> mid (resnet, self-attention,
 resnet) -> 4 up levels of 3 resnets with a nearest 2x upsample between ->
 GroupNorm -> silu -> conv_out 3ch. Channels (512, 512, 256, 128) going up;
 output in [-1, 1]. NHWC activations and channels_last OIHW conv kernels, as
-in ``unet``; the mid attention (one head of 512) goes through ``mha``. One
-``vae`` span a decode (its GroupNorms record ``group_norm`` spans inside).
+in ``unet``, and its ``group_norm`` (in bf16 on the card the GroupNorm
+kernel, each SiLU fused into the norm before it); the mid attention (one
+head of 512) goes through ``mha``. One ``vae`` span a decode (its GroupNorms
+record ``group_norm`` spans inside).
 """
 from __future__ import annotations
 
@@ -14,7 +16,6 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ... import resolve_device
 from ...ops.attention import mha
@@ -54,9 +55,9 @@ def _init_resnet(gen, cin, cout, dtype, device):
 
 
 def _resnet(p, x, groups):
-    h = F.silu(group_norm(p["norm1"], x, groups))
+    h = group_norm(p["norm1"], x, groups, silu=True)
     h = conv2d(p["conv1"], h)
-    h = F.silu(group_norm(p["norm2"], h, groups))
+    h = group_norm(p["norm2"], h, groups, silu=True)
     h = conv2d(p["conv2"], h)
     skip = conv2d(p["conv_shortcut"], x) if "conv_shortcut" in p else x
     return skip + h
@@ -126,5 +127,5 @@ def vae_decode(params, latents: torch.Tensor,
                 x = _resnet(r, x, G)
             if "upsample" in block:
                 x = conv2d(block["upsample"], upsample_nearest(x))
-        x = F.silu(group_norm(params["conv_norm_out"], x, G))
+        x = group_norm(params["conv_norm_out"], x, G, silu=True)
         return conv2d(params["conv_out"], x)

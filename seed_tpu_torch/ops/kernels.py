@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "seed_tpu_torch"
 SOURCES = {"short_mha": "short_mha.cu", "int8_matmul": "int8_matmul.cu",
            "flash_attention": "flash_attention.cu",
-           "w8a8_matmul": "w8a8_matmul.cu"}
+           "w8a8_matmul": "w8a8_matmul.cu", "group_norm": "group_norm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,6 +6,8 @@ not installed, run them without the suite's conftest (which imports it):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from seed_tpu_torch.models import layers as L
 from seed_tpu_torch.models import unclip as TU
 from seed_tpu_torch.models.unclip import unet as TUN
 from seed_tpu_torch.ops import flash_attention as TF
+from seed_tpu_torch.ops import group_norm as GN
 from seed_tpu_torch.ops import int8_matmul as TI
 from seed_tpu_torch.ops.attention import mha
 from seed_tpu_torch.ops.flash_attention import short_mha, short_mha_plain
@@ -706,6 +709,140 @@ def test_unet_self_attention_runs_the_flash_forward(gen, N, heads):
     for want in (want_plain, want_mha):
         assert (o.float() - want.float()).abs().max().item() <= 2.0 ** -6
 
+# ------------------------- the GroupNorm kernel ------------------------------
+
+# every (B, H * W, C) of the de-tokenizer's GroupNorms: the UNet at CFG batch 2
+# (levels of 96, 48, 24 and 12 a side), the VAE at B=1 (96 to 768 a side)
+GN_CASES = [(2, n, c) for n, cs in (
+    (9216, (320, 640, 960)), (2304, (320, 640, 960, 1280, 1920)),
+    (576, (640, 1280, 1920, 2560)), (144, (1280, 2560))) for c in cs]
+GN_CASES += [(1, 96 * 96, 512), (1, 192 * 192, 512), (1, 384 * 384, 512),
+             (1, 384 * 384, 256), (1, 768 * 768, 256), (1, 768 * 768, 128)]
+
+
+def _gn_inputs(gen, B, N, C):
+    """bf16 x [B, side, side, C] with a spread of channel means and scales
+    (so groups differ), bf16 scale and bias as the bf16 model holds them."""
+    side = math.isqrt(N)
+    m = 2 * torch.randn(C, generator=gen, device="cuda")
+    sd = 0.5 + 1.5 * torch.rand(C, generator=gen, device="cuda")
+    x = (torch.randn(B, side, side, C, generator=gen, device="cuda") * sd
+         + m).to(torch.bfloat16)
+    scale = torch.randn(C, generator=gen, device="cuda").to(torch.bfloat16)
+    bias = torch.randn(C, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("B,N,C", GN_CASES)
+def test_group_norm_kernel_matches_the_fp32_chain(gen, B, N, C, silu):
+    """The kernel against the plain fp32 chain (fp32 input, scale and bias:
+    the same function, unrounded): within one bf16 ulp of the output's
+    magnitude (2**-7 of |y|, plus 1e-5 of max |y| for the order of the fp32
+    sums); its mean and variance of each group against float64 within 1e-5
+    (the mean relative to the group's |mean| + std, the variance relative to
+    itself). One call, one count."""
+    x, scale, bias = _gn_inputs(gen, B, N, C)
+    assert GN.group_norm_route(x, 32)
+    stats = torch.empty(B, 32, 2, device="cuda")
+    before = GN.group_norm_kernel.launches
+    got = GN.group_norm_kernel(x, scale, bias, 32, 1e-5, silu, stats)
+    assert GN.group_norm_kernel.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    want = GN.group_norm_plain(x.float(), scale.float(), bias.float(), 32,
+                               1e-5, silu)
+    err = (got.float() - want).abs()
+    tol = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    assert (err <= tol).all(), (err - tol).max().item()
+    x64 = x.double().reshape(B, N, 32, C // 32)
+    mean64 = x64.mean(dim=(1, 3))
+    var64 = (x64 - mean64[:, None, :, None]).square().mean(dim=(1, 3))
+    mean, var = stats[..., 0].double(), stats[..., 1].double()
+    assert ((mean - mean64).abs()
+            <= 1e-5 * (mean64.abs() + var64.sqrt())).all()
+    assert ((var - var64).abs() <= 1e-5 * var64).all()
+
+
+# the resident design's shapes on the streaming design, and the resident
+# design at its capacity (slices of 184,320 bytes: a group of 10 channels over
+# 9,216 positions, of 40 over 2,304), which the plan gives the streaming one
+GN_OTHER_DESIGN = [(2, 144, 1280, False), (2, 144, 2560, False),
+                   (2, 576, 1280, False), (2, 2304, 640, False),
+                   (2, 2304, 320, False), (2, 9216, 320, True),
+                   (2, 2304, 1280, True)]
+
+
+@pytest.mark.parametrize("B,N,C,resident", GN_OTHER_DESIGN)
+def test_group_norm_other_design_matches_the_fp32_chain(gen, monkeypatch, B,
+                                                        N, C, resident):
+    """Each design where the plan chose the other one (forced through
+    resident_fits), with SiLU, within the same bf16 ulp of the fp32 chain."""
+    assert GN.resident_fits(N, C, 32) != resident
+    monkeypatch.setattr(GN, "resident_fits", lambda n, c, groups: resident)
+    x, scale, bias = _gn_inputs(gen, B, N, C)
+    assert GN.group_norm_plan(B, N, C, 32)[0] == resident
+    got = GN.group_norm_kernel(x, scale, bias, 32, 1e-5, True)
+    want = GN.group_norm_plain(x.float(), scale.float(), bias.float(), 32,
+                               1e-5, True)
+    err = (got.float() - want).abs()
+    tol = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    assert (err <= tol).all(), (err - tol).max().item()
+
+
+@pytest.mark.parametrize("B,N,C", [(2, 9216, 960), (2, 144, 2560),
+                                   (2, 576, 1280), (1, 768 * 768, 256)])
+def test_group_norm_kernel_repeats_bit_for_bit(gen, B, N, C):
+    """No atomics: two calls give the same bits, with SiLU and without, in
+    both designs (resident at 144 and 576 positions)."""
+    x, scale, bias = _gn_inputs(gen, B, N, C)
+    for silu in (False, True):
+        first = GN.group_norm_kernel(x, scale, bias, 32, 1e-5, silu)
+        assert torch.equal(first, GN.group_norm_kernel(x, scale, bias, 32,
+                                                       1e-5, silu))
+
+
+def test_group_norm_kernels_link_to_their_operation_in_a_trace(gen):
+    """Under torch.profiler every kernel of a call (the resident design's
+    one, the streaming design's two) links to the host operation that
+    launched it, _GroupNormKernel, as the benchmark's split by span needs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    inputs = [_gn_inputs(gen, 2, 576, 1280), _gn_inputs(gen, 2, 9216, 320)]
+    for x, scale, bias in inputs:       # load the kernels before the trace
+        GN.group_norm_kernel(x, scale, bias, 32, 1e-5, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, scale, bias in inputs:
+            GN.group_norm_kernel(x, scale, bias, 32, 1e-5, True)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    # host events by correlation id, as h100bench's split reads them (the
+    # profiler's own events, such as its buffer requests, may share an id)
+    host = {}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA and e.linked_correlation_id() == 0:
+            host.setdefault(e.correlation_id(), set()).add(e.name())
+    linked = [host.get(e.linked_correlation_id(), set()) for e in events
+              if e.device_type() == DeviceType.CUDA and "gn_" in e.name()]
+    assert len(linked) == 3
+    assert all("_GroupNormKernel" in names for names in linked), linked
+
+
+def test_group_norm_kernel_raises_instead_of_falling_back(gen):
+    """fp32, a layout or a grouping the kernel does not take: a ValueError,
+    never the plain chain on the card."""
+    x = torch.randn(2, 8, 8, 320, generator=gen, device="cuda")
+    p = torch.ones(320, device="cuda")
+    with pytest.raises(ValueError, match="not a shape"):
+        GN.group_norm_kernel(x, p, p, 32)
+    with pytest.raises(ValueError, match="not a shape"):
+        GN.group_norm_kernel(x.bfloat16(), p, p, 30)
+    with pytest.raises(ValueError, match="not a shape"):
+        GN.group_norm_kernel(x.bfloat16().transpose(1, 2), p, p, 32)
+    with pytest.raises(ValueError, match="scale"):
+        GN.group_norm_kernel(x.bfloat16(), p[:64], p[:64], 32)
+
+
 @pytest.fixture
 def no_tf32():
     """fp32 convolutions and matmuls in full fp32 for the comparison."""
@@ -720,8 +857,9 @@ def test_unclip_unet_pass_bf16_against_fp32(gen, no_tf32):
     96x96x4, a [2, 77, 1024] context): bf16 within 5e-2 of the fp32 output's
     largest magnitude (chip_smoke.py's UNET_BF16_TOL). The bf16 pass
     launches the flash forward 15 times (the self-attention over 9,216,
-    2,304 and 576 tokens, five calls each); the fp32 pass launches none, and
-    no other kernel of the six runs."""
+    2,304 and 576 tokens, five calls each) and the GroupNorm kernel 61 times
+    (every GroupNorm of the pass); the fp32 pass launches neither, and no
+    other kernel runs."""
     cfg = TU.SD21_UNCLIP
     p32 = TU.init_unet(gen, cfg.unet)
     p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
@@ -729,13 +867,15 @@ def test_unclip_unet_pass_bf16_against_fp32(gen, no_tf32):
     ctx = torch.randn((2, 77, 1024), generator=gen, device="cuda")
     labels = torch.randn((2, 2048), generator=gen, device="cuda")
     t = torch.tensor([951, 951], device="cuda")
-    before = (short_mha.launches, int8_matmul.launches, TF.flash_fwd.launches)
+    counters = lambda: (short_mha.launches, int8_matmul.launches,
+                        TF.flash_fwd.launches, GN.group_norm_kernel.launches)
+    before = counters()
     with torch.inference_mode():
         ref = TU.unet_apply(p32, lat, t, ctx, labels, cfg.unet)
+        assert counters() == before
         got = TU.unet_apply(p16, lat.bfloat16(), t, ctx.bfloat16(),
                             labels.bfloat16(), cfg.unet)
-    assert (short_mha.launches, int8_matmul.launches,
-            TF.flash_fwd.launches) == (*before[:2], before[2] + 15)
+    assert counters() == (*before[:2], before[2] + 15, before[3] + 61)
     assert got.shape == ref.shape == (2, 96, 96, 4) and got.isfinite().all()
     rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
     assert rel <= 5e-2, rel
